@@ -1,0 +1,75 @@
+"""SPH density over the binned slots.
+
+Counterpart of the JAX package's ``neighbors/pallas_sym.py``
+``density_sym`` (the reference's density route at the flagship size) and
+of the fold it is tested against, ``solvers/wcsph_binned.py``
+``_density``:
+
+    rho_i = sum_j m_j W_poly6(|x_i - x_j|)   (self pair included)
+
+over the 3^(dim-1) slab windows of slot i's cell; then 0 where the slot is
+not valid, then floored at 1e-6 rest_density. ``h`` is ``params.h``.
+
+``density`` launches the CUDA kernel (``csrc/density.cu``) for CUDA
+tensors and runs ``density_plain`` (the blocked slab fold) for CPU tensors;
+any other device raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sph_pie_torch import _native
+from sph_pie_torch.core.params import FluidParams
+from sph_pie_torch.kernels import smoothing
+from sph_pie_torch.neighbors import binned as nb
+
+
+def density_plain(
+    params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
+) -> torch.Tensor:
+    """[S] density by the one-sided slab fold."""
+    dim, h = params.dim, params.h
+
+    def pair(carry, home, w):
+        _, r2 = nb._r2(dim, home, w)                      # [blk, r, 3cap]
+        wk = smoothing.poly6(dim, h, r2)
+        return (carry[0] + (w["mass"][:, None, :] * wk).sum(2),)
+
+    fields = {**nb._planar("p", b.pos), "mass": b.mass}
+    (rho,) = nb.slab_fold(grid, fields, pair, (torch.zeros_like(b.mass),))
+    rho = torch.where(b.valid, rho, 0.0)
+    return torch.maximum(rho, 1e-6 * params.rest_density)
+
+
+def density(
+    params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
+) -> torch.Tensor:
+    """``density_plain`` on the CPU; the ``density`` CUDA kernel on the card."""
+    if b.pos.device.type == "cpu":
+        return density_plain(params, grid, b)
+    if b.pos.device.type != "cuda":
+        raise ValueError(f"density: no kernel for device {b.pos.device}")
+    dt, dev = b.pos.dtype, b.pos.device
+    S = grid.num_slots
+    if b.pos.shape != (S, grid.dim):
+        raise ValueError(f"density: pos must be [{S}, {grid.dim}]")
+    h = params.h
+    prm = torch.stack(
+        [h, smoothing.poly6_coeff(params.dim, h), 1e-6 * params.rest_density]
+    ).to(dt)
+    _native.check_cuda(
+        "density", dt, dev, pos=(b.pos, None), mass=(b.mass, None),
+        valid=(b.valid, torch.bool), prm=(prm, None),
+    )
+    rho = torch.empty(S, dtype=dt, device=dev)
+    s0, s1 = (grid.strides + (0,))[:2]
+    _native.launch(
+        "density", dt, b.pos, b.mass, b.valid, prm, rho, S, grid.cap,
+        grid.dim, s0, s1,
+    )
+    density.launches += 1
+    return rho
+
+
+density.launches = 0
