@@ -2,9 +2,10 @@
 
 The sources compile with ``nvcc`` into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``. The build happens at the first kernel call, into ``_build/``
-beside this file, under a name keyed by a hash of the sources and flags:
-an edited source rebuilds, an unchanged one loads the existing library.
+``ctypes``: one ``nvcc -c`` per source, all started together, then one
+link. The build happens at the first kernel call, into ``_build/`` beside
+this file, under a name keyed by a hash of the sources and flags: an
+edited source rebuilds, an unchanged one loads the existing library.
 
 There is no fallback: without ``nvcc``, or when the build fails, ``build``
 raises with the compiler's output.
@@ -26,19 +27,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # Every launcher returns cudaGetLastError() and takes the stream last.
 _SIGNATURES = {
+    "sph_center_slab_f32": [_P] * 8 + [_L, _I, _F, _F, _I, _P],
+    "sph_forces_mma_f32": [_P] * 9 + [_L, _I, _L, _L, _I, _P],
     **{
         f"sph_expand_{t}": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P]
         for t in ("f32", "f64")
     },
     **{
-        f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P]
+        f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P]
         for t in ("f32", "f64")
     },
     **{
@@ -80,23 +83,39 @@ def library_path() -> Path:
 def build(nvcc: str | None = None) -> Path:
     """Compile ``csrc/*.cu`` unless a library for these sources exists.
 
-    The compiler's report (registers, spills per kernel) is kept beside the
-    library as ``.log``."""
+    Each source compiles in its own ``nvcc`` process, all at once, so the
+    build takes about as long as the slowest source; the objects are then
+    linked. The compiler's report (registers, spills per kernel) is kept
+    beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     nvcc = nvcc or find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    stem = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{stem}.tmp")
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((obj, cmd, proc))
+    try:
+        report = [(cmd, proc.communicate()[0], proc.returncode) for _, cmd, proc in jobs]
+        if all(rc == 0 for _, _, rc in report):
+            link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _, _ in jobs)]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            report.append((link, proc.stdout, proc.returncode))
+        for cmd, text, rc in report:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed with code {rc}:\n{' '.join(cmd)}\n{text}")
+    finally:
+        for obj, _, proc in jobs:
+            if proc.poll() is None:  # interrupted while waiting: stop the rest
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(text for _, text, _ in report))
     os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
     return out
 
@@ -117,9 +136,10 @@ def launch(kernel: str, dtype: torch.dtype, *args) -> None:
 
     Tensors in ``args`` pass as device pointers; the caller has checked
     their device, dtype, shape and contiguity."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"{kernel}: the CUDA kernel takes float32 or float64, got {dtype}")
-    fn = getattr(library(), f"sph_{kernel}_{_SUFFIX[dtype]}")
+    name = f"sph_{kernel}_{_SUFFIX.get(dtype)}"
+    if name not in _SIGNATURES:
+        raise TypeError(f"{kernel}: no CUDA kernel for {dtype}")
+    fn = getattr(library(), name)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -433,6 +433,7 @@ def slab_fold(
     fields: dict[str, torch.Tensor],
     pair_fn: PairFn,
     init: Sequence[torch.Tensor],
+    every_slot: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """Fold ``pair_fn`` over all neighbor slabs, blocked over cells.
 
@@ -452,7 +453,9 @@ def slab_fold(
     block's deepest cell (``r``): rank r is occupied only if its cell
     holds more than r particles, so the cut rows are empty slots. Both
     leave every occupied slot's sums unchanged; empty slots get 0. Reading
-    the occupancy is one device-to-host copy per call.
+    the occupancy is one device-to-host copy per call. ``every_slot`` turns
+    both off; only ``density_window_plain`` sets it, because its reference
+    (``pallas_density.density_pallas``) keeps a density on empty slots.
     """
     cap, C = grid.cap, grid.num_cells
     shifts = grid.slab_shifts()
@@ -468,8 +471,11 @@ def slab_fold(
         return torch.cat([z, x, back])
 
     padded = {k: pad_rows(v) for k, v in fields.items()}
-    occ = padded["mass"][padc * cap : (padc + nblk * blk) * cap] > 0
-    depth = occ.reshape(nblk, blk, cap).sum(2).amax(1).tolist()
+    if every_slot:
+        depth = [cap] * nblk
+    else:
+        occ = padded["mass"][padc * cap : (padc + nblk * blk) * cap] > 0
+        depth = occ.reshape(nblk, blk, cap).sum(2).amax(1).tolist()
 
     out = tuple(torch.zeros_like(a) for a in init)
     for b, rows in enumerate(depth):

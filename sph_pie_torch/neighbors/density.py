@@ -55,9 +55,10 @@ def density(
     if b.pos.shape != (S, grid.dim):
         raise ValueError(f"density: pos must be [{S}, {grid.dim}]")
     h = params.h
-    prm = torch.stack(
+    c = torch.stack(
         [h, smoothing.poly6_coeff(params.dim, h), 1e-6 * params.rest_density]
     ).to(dt)
+    prm = torch.cat([c[:1] * c[:1], c[1:]])  # the kernel takes h^2
     _native.check_cuda(
         "density", dt, dev, pos=(b.pos, None), mass=(b.mass, None),
         valid=(b.valid, torch.bool), prm=(prm, None),
@@ -66,7 +67,7 @@ def density(
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(
         "density", dt, b.pos, b.mass, b.valid, prm, rho, S, grid.cap,
-        grid.dim, s0, s1,
+        grid.dim, s0, s1, 1,
     )
     density.launches += 1
     return rho

@@ -8,6 +8,8 @@ as numpy arrays, runs both, and compares.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,3 +45,13 @@ def scaled_err(got, want) -> float:
     """max |got - want| / max |want| (scale-normalised absolute error)."""
     got, want = np.asarray(got), np.asarray(want)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` of the reference, loaded by path (``scripts/`` is
+    no package)."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
