@@ -10,6 +10,10 @@ particles, cap 40, cohesion and XSPH on) and a 2D dam break (4096, cap 32)
 advanced 10 steps; the 2D run is also checked end to end against the same
 10 steps on the CPU (plain versions only), and a 2D scene binned into
 cap-8 cells checks the placement of overfull cells against the CPU.
+Density and forces are also checked where their staged windows pass slot
+0 and slot S (a 3D 20k scene with two particles binned into the first and
+the last interior cell, in float32 and float64), in float64 on the 2D
+scene, and on the full cap-8 cells of the overfull scene.
 
 Phase A also holds the four kernels of the reference's drop-in and
 hardware-harness paths against their plain versions: both window
@@ -35,8 +39,10 @@ float32 ``forces_mma`` against the main path's ``density`` and
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. On success
-the line before the last is a JSON object with one entry per kernel, and
-the last line is ``{"ok": true, "device": {...}}``.
+the line before the last is a JSON object with one entry per kernel (its
+launches on its path, error, ms, plain ms, ``bound_ms``: the least time of
+its work on this state at the card's published peaks, ``bound_by`` and
+``library_ms``), and the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ import torch
 # Error bounds, each with its reason.
 DENSITY_RTOL = 1e-5   # f32, summation order only (gather vs fold)
 FORCES_ATOL = 1e-5    # f32, scale-normalised: max|diff| / max|plain|
+DENSITY_RTOL_F64 = 1e-12  # the f64 arms, summation order only
+FORCES_ATOL_F64 = 1e-10   # f64, scale-normalised
 TRAJ_ATOL = 1e-5      # f32 max |dpos| after 10 steps, card vs CPU, domain ~1 m
 WINDOW_RTOL = 1e-5    # window densities, f32, summation order only; also
                       # density_cap32 vs density (h from the grid vs params.h:
@@ -71,6 +79,20 @@ C_STEPS = 5           # C1: steps before the kernels run (micro_mxu_vmem.py)
 SLAB_K = 32           # compact K at 1M (micro_compact.py's default)
 SLAB_K_CUT = 4        # a compact K that truncates at 1M, so the first-K rule
                       # is checked there too (K = 32 truncates nothing there)
+
+# The least time of a kernel's work (bound_ms): the larger of its bytes (each
+# input read once, each output written once) over the memory rate and its
+# operations over the float32 rate outside the tensor cores. Published peaks
+# of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Float operations per pair in support, counted in the kernels' pair math:
+# density: r^2 (3 sub, 3 mul, 2 add), q, m (c6 q q q), the sum: 14.
+DENSITY_PAIR_FLOPS = 14
+# forces: r^2 (8), rsqrt, r, q, q^2 C_s, the pressure term (3), 1/r, the
+# viscous weight (2), per axis dv and two multiply-adds (15): 34; cohesion
+# adds 11, XSPH 11 (its weight 5, per axis a multiply-add).
+FORCES_PAIR_FLOPS, COHESION_FLOPS, XSPH_FLOPS = 34, 11, 11
 
 KERNELS = {
     "density": (
@@ -142,6 +164,17 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed(fn):
+    """(fn(), device ms of that one call) by CUDA events. The plain versions
+    run for a second or more, so each is timed in the call that checks it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 @contextlib.contextmanager
 def counting_syncs(counts: list[int]):
     """Count implicit device-to-host syncs (torch's sync debug mode warns
@@ -166,10 +199,75 @@ def scaled(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
 
 
-def compare_kernels(params, grid, b):
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms for the work, what bounds it: "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pairs_in_support(grid, b, h2) -> int:
+    """Pairs of an occupied home slot and an occupied slot of its slab
+    windows with r^2 < h^2: the pair work that state ``b`` needs."""
+    from sph_pie_torch.neighbors import binned as nb
+
+    def pair(carry, home, w):
+        _, r2 = nb._r2(grid.dim, home, w)
+        return (carry[0] + ((r2 < h2) & (w["mass"][:, None, :] != 0)).sum(2),)
+
+    fields = {**nb._planar("p", b.pos), "mass": b.mass}
+    init = torch.zeros_like(b.mass, dtype=torch.int64)
+    (n,) = nb.slab_fold(grid, fields, pair, (init,))
+    return int(n[b.mass != 0].sum())
+
+
+def empty_home_pairs(grid, b, h2) -> int:
+    """Pairs of an empty home slot (at pos 0) and an occupied window slot
+    within h of the origin: the extra work of a kernel without valid mask."""
+    C, cap = grid.num_cells, grid.cap
+    near = ((b.mass != 0) & ((b.pos * b.pos).sum(1) < h2)).nonzero()[:, 0] // cap
+    empty = cap - (b.mass.reshape(C, cap) != 0).sum(1)
+    # slot j lies in a window of cell c iff c = cell(j) - shift - o, o in -1..1
+    offs = torch.tensor([sh + o for sh in grid.slab_shifts() for o in (-1, 0, 1)],
+                        device=near.device)
+    c = near[:, None] - offs[None, :]
+    return int(empty[c.clamp(0, C - 1)][(c >= 0) & (c < C)].sum())
+
+
+def center_slab_pairs(inputs, h2) -> torch.Tensor:
+    """[C, cap] candidates in support (r^2 < h^2, m > 0) per home slot of
+    the center-slab inputs, all home slots included."""
+    hx, hy, hz, _, wx, wy, wz, wm = inputs
+    C, cap = hx.shape
+    out = torch.empty_like(hx, dtype=torch.int64)
+    chunk = max(1, 8 * 1024 * 1024 // (3 * cap * cap))
+    for c0 in range(0, C, chunk):
+        sl = slice(c0, c0 + chunk)
+        r2 = ((wx[sl][:, None, :] - hx[sl][:, :, None]) ** 2
+              + (wy[sl][:, None, :] - hy[sl][:, :, None]) ** 2
+              + (wz[sl][:, None, :] - hz[sl][:, :, None]) ** 2)
+        out[sl] = ((r2 < h2) & (wm[sl][:, None, :] > 0)).sum(2)
+    return out
+
+
+def kernel_row(name: str, launches: int, err: float, ms: float, p_ms: float,
+               least: tuple[float, str]) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line. No single PyTorch call
+    computes any of these functions (a cut-off sum over slab windows, the
+    slot placement of ``expand``), so ``library_ms`` is null."""
+    src, replaces = KERNELS[name]
+    print(f"  {name:19s} kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound {least[0]:.4f} ms "
+          f"({least[1]})")
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+        "bound_ms": least[0], "bound_by": least[1], "library_ms": None,
+    }
+
+
+def compare_kernels(params, grid, b, rtol=DENSITY_RTOL, atol=FORCES_ATOL, with_expand=True):
     """Each kernel against its plain version on state ``b``; raises past a
-    bound. Returns ({name: max abs error}, ``b`` with density and pressure
-    from the density kernel)."""
+    bound. Returns ({name: max abs error}, {name: plain ms} of density and
+    forces, ``b`` with density and pressure from the density kernel)."""
     from sph_pie_torch.kernels import eos
     from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.neighbors.density import density, density_plain
@@ -177,20 +275,24 @@ def compare_kernels(params, grid, b):
     from sph_pie_torch.neighbors.forces import forces, forces_plain
     from sph_pie_torch.utils.struct import replace
 
-    out = {}
+    out, plain = {}, {}
     v = b.valid
-    rk, rp = density(params, grid, b), density_plain(params, grid, b)
+    rk = density(params, grid, b)
+    rp, plain["density"] = timed(lambda: density_plain(params, grid, b))
     rel = ((rk - rp).abs()[v] / rp[v]).max().item()
     out["density"] = (rk - rp).abs().max().item()
-    print(f"  density  max rel err {rel:.3e} (bound {DENSITY_RTOL:g}), max abs {out['density']:.3e}")
-    check(rel <= DENSITY_RTOL and torch.equal(rk[~v], rp[~v]), "density kernel disagrees")
+    print(f"  density  max rel err {rel:.3e} (bound {rtol:g}), max abs {out['density']:.3e}")
+    check(rel <= rtol and torch.equal(rk[~v], rp[~v]), "density kernel disagrees")
 
     b = replace(b, density=rk, pressure=eos.tait_pressure(params, rk))
-    (ak, xk), (ap, xp) = forces(params, grid, b), forces_plain(params, grid, b)
+    ak, xk = forces(params, grid, b)
+    (ap, xp), plain["forces"] = timed(lambda: forces_plain(params, grid, b))
     ea, ex = scaled(ak, ap), scaled(xk, xp)
     out["forces"] = max((ak - ap).abs().max().item(), (xk - xp).abs().max().item())
-    print(f"  forces   acc scaled err {ea:.3e}, xsph scaled err {ex:.3e} (bound {FORCES_ATOL:g})")
-    check(ea <= FORCES_ATOL and ex <= FORCES_ATOL, "forces kernel disagrees")
+    print(f"  forces   acc scaled err {ea:.3e}, xsph scaled err {ex:.3e} (bound {atol:g})")
+    check(ea <= atol and ex <= atol, "forces kernel disagrees")
+    if not with_expand:
+        return out, plain, b
 
     pos, vel, mass, alive = nb._compact(grid, b)
     owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
@@ -201,7 +303,7 @@ def compare_kernels(params, grid, b):
     out["expand"] = (dk - dp).abs().max().item()
     print(f"  expand   equal to plain: {same} (bound: exact)")
     check(same, "expand kernel disagrees")
-    return out, b
+    return out, plain, b
 
 
 def phase_a() -> None:
@@ -242,13 +344,55 @@ def phase_a() -> None:
             print(f"  10 steps card vs CPU: max |dpos| {err:.3e} (bound {TRAJ_ATOL:g})")
             check(err <= TRAJ_ATOL, "trajectory differs from the CPU")
 
+    edge_runs()
+
+    # The float64 arms of density and forces on the 2D state.
+    s = dam_break_2d(4096, dtype=torch.float64, device="cuda")
+    b = wcsph_binned.simulate(s.params, s.bgrid, s.binned_state(), 10)
+    print(f" {s.name}(4096) float64: cap {s.bgrid.cap}")
+    compare_kernels(s.params, s.bgrid, b, DENSITY_RTOL_F64, FORCES_ATOL_F64, with_expand=False)
+
     # Overfull cells: a 2D dam break binned into cap-8 cells drops rows.
-    on_card = dam_break_2d(400, bcap=8, device="cuda").binned_state()
-    on_cpu = dam_break_2d(400, bcap=8).binned_state()
+    s = dam_break_2d(400, bcap=8, device="cuda")
+    on_card = s.binned_state()
+    on_cpu = dam_break_2d(400, bcap=8, device="cpu").binned_state()
     diff = differing_fields(on_card, on_cpu)
     print(f" dam_break_2d(400, cap 8): bin_state card == CPU in all 13 fields: {not diff} "
           f"{diff or ''}(overflow {int(on_card.overflow)})")
     check(not diff and int(on_card.overflow) > 0, f"overflowing bin_state differs in {diff}")
+    # full cells at the smallest cap: the smallest staged spans
+    compare_kernels(s.params, s.bgrid, on_card, with_expand=False)
+
+
+def edge_runs() -> None:
+    """Density and forces where the staged windows pass slot 0 and slot S:
+    two particles of a 3D dam break (20k, cap 40, whose grid puts the first
+    and the last interior cell inside runs that start and end there) moved
+    past opposite corners of the box are binned into those cells. In
+    float32 and in float64: the float64 3D forces layout (~62 KB) is the one
+    that raises the CTA's shared memory above its 48 KB default."""
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.neighbors import runs
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.utils.struct import replace
+
+    for dt, rtol, atol in ((torch.float32, DENSITY_RTOL, FORCES_ATOL),
+                           (torch.float64, DENSITY_RTOL_F64, FORCES_ATOL_F64)):
+        s = dam_break_3d(20_000, dtype=dt, device="cuda")
+        g = s.bgrid
+        pos = s.state.pos.clone()
+        pos[0], pos[1] = -1.0, 2.0
+        b = nb.bin_state(g, replace(s.state, pos=pos), s.boundary)
+        occ = (b.mass.reshape(g.num_cells, g.cap) != 0).any(1).nonzero()[:, 0]
+        first, last = int(occ[0]), int(occ[-1])
+        sh = g.slab_shifts()
+        R = runs.run_cells(g.cap)
+        below = (first // R * R + min(sh) - 1) * g.cap
+        past = (last // R * R + R + max(sh) + 1) * g.cap
+        print(f" {s.name}(20000) {dt}: runs of {R} cells at cells {first} and {last}: windows "
+              f"from slot {below} to {past} of {g.num_slots}")
+        check(below < 0 and past > g.num_slots, "the edge runs do not pass slot 0 and S")
+        compare_kernels(s.params, g, b, rtol, atol, with_expand=False)
 
 
 def with_density(params, grid, b):
@@ -277,8 +421,8 @@ def micro_outputs(params, grid, b) -> dict:
 def check_micro(params, grid, b, outs: dict) -> dict:
     """``micro_outputs`` against their plain versions, ``density_cap32``
     against ``density`` and the float32 ``forces_mma`` against ``forces``
-    on valid slots; raises past a bound. Returns {name: max abs error vs
-    plain}."""
+    on valid slots; raises past a bound. Returns ({name: max abs error vs
+    plain}, {name: plain ms})."""
     from sph_pie_torch.micro.forces_mma import forces_mma_plain
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.density_window import (
@@ -287,10 +431,11 @@ def check_micro(params, grid, b, outs: dict) -> dict:
     )
     from sph_pie_torch.neighbors.forces import forces
 
-    errs = {}
+    errs, plain_ms = {}, {}
     v = b.valid
     for name, plain in (("density_cap32", density_cap32_plain), ("density_window", density_window_plain)):
-        rk, rp = outs[name], plain(params, grid, b)
+        rk = outs[name]
+        rp, plain_ms[name] = timed(lambda: plain(params, grid, b))
         rel = ((rk - rp).abs() / rp).max().item()  # rp >= the floor > 0
         errs[name] = (rk - rp).abs().max().item()
         print(f"  {name:15s} max rel err {rel:.3e} over all {rk.numel()} slots (bound {WINDOW_RTOL:g})")
@@ -302,7 +447,8 @@ def check_micro(params, grid, b, outs: dict) -> dict:
 
     af, xf = forces(params, grid, b)
     for name, bf16, bound in (("forces_mma", False, MMA_F32_ATOL), ("forces_mma_bf16", True, MMA_BF16_ATOL)):
-        (ak, xk), (ap, xp) = outs[name], forces_mma_plain(params, grid, b, bf16=bf16)
+        ak, xk = outs[name]
+        (ap, xp), plain_ms[name] = timed(lambda: forces_mma_plain(params, grid, b, bf16=bf16))
         ea, ex = scaled(ak, ap), scaled(xk, xp)
         errs[name] = max((ak - ap).abs().max().item(), (xk - xp).abs().max().item())
         print(f"  {name:15s} acc scaled err {ea:.3e}, xsph {ex:.3e} (bound {bound:g})")
@@ -314,12 +460,13 @@ def check_micro(params, grid, b, outs: dict) -> dict:
         else:
             print(f"    vs forces on valid slots: acc {fa:.3e}, xsph {fx:.3e} (bound {MMA_F32_ATOL:g})")
             check(fa <= MMA_F32_ATOL and not fx > MMA_F32_ATOL, "forces_mma disagrees with forces")
-    return errs
+    return errs, plain_ms
 
 
 def check_slab(grid, inputs, dense, compact: dict) -> dict:
     """Center-slab kernel outputs (dense, {K: compact}) against their plain
-    versions; raises past a bound. Returns {name: max abs error}."""
+    versions; raises past a bound. Returns ({name: max abs error}, {name:
+    plain ms}, compact at K = SLAB_K)."""
     from sph_pie_torch.micro.center_slab import (
         center_slab_compact_plain,
         center_slab_dense_plain,
@@ -334,18 +481,21 @@ def check_slab(grid, inputs, dense, compact: dict) -> dict:
         check(rel <= SLAB_RTOL and zeros, f"center slab {label} kernel disagrees")
         return (got - want).abs().max().item()
 
-    dp = center_slab_dense_plain(grid, inputs)
+    plain_ms = {}
+    dp, plain_ms["center_slab_dense"] = timed(lambda: center_slab_dense_plain(grid, inputs))
     errs = {"center_slab_dense": err("dense", dense, dp), "center_slab_compact": 0.0}
     cuts = {}
     for K, ck in compact.items():
-        cp = center_slab_compact_plain(grid, inputs, K)
+        cp, t = timed(lambda: center_slab_compact_plain(grid, inputs, K))
+        if K == SLAB_K:
+            plain_ms["center_slab_compact"] = t
         e = err(f"compact K={K}", ck, cp)
         cuts[K] = int((cp < dp * (1 - 1e-6)).sum())
         print(f"    K={K} truncates {cuts[K]} of {cp.numel()} home slots")
         errs["center_slab_compact"] = max(errs["center_slab_compact"], e)
     k = min(cuts)
     check(cuts[k] > 0, f"compact K={k} truncates nothing: the first-K rule went unchecked")
-    return errs
+    return errs, plain_ms
 
 
 def phase_a_micro() -> None:
@@ -376,15 +526,9 @@ def phase_a_micro() -> None:
     check_slab(s.bgrid, inputs, center_slab_dense(s.bgrid, inputs), compact)
 
 
-def plain_ms(fn) -> float:
-    """Device time of a plain version: one rep where it takes over 1 s."""
-    ms = cuda_ms(fn, 1, warm=0)
-    return ms if ms > 1000 else cuda_ms(fn, 3, warm=0)
-
-
 def phase_c(main_path) -> list[dict]:
     from sph_pie_torch.micro import center_slab as cs
-    from sph_pie_torch.micro.forces_mma import forces_mma, forces_mma_plain
+    from sph_pie_torch.micro.forces_mma import forces_mma
     from sph_pie_torch.neighbors import density_window as dw
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.forces import forces
@@ -430,31 +574,41 @@ def phase_c(main_path) -> list[dict]:
     want = {name: 1 for name in launches} | {"center_slab_compact": len(compact)}
     check(launches == want, f"launches {launches} != {want}")
 
-    errs = check_micro(p, g, b, outs)
-    errs.update(check_slab(g2, inputs, dense, compact))
+    errs, plain = check_micro(p, g, b, outs)
+    slab_errs, slab_plain = check_slab(g2, inputs, dense, compact)
+    errs.update(slab_errs)
+    plain.update(slab_plain)
     print(f" peak device memory so far {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    timings = {
-        "density_cap32": (lambda: dw.density_cap32(p, g, b), lambda: dw.density_cap32_plain(p, g, b)),
-        "density_window": (lambda: dw.density_window(p, g, b), lambda: dw.density_window_plain(p, g, b)),
-        "center_slab_dense": (lambda: cs.center_slab_dense(g2, inputs),
-                              lambda: cs.center_slab_dense_plain(g2, inputs)),
-        "center_slab_compact": (lambda: cs.center_slab_compact(g2, inputs, SLAB_K),
-                                lambda: cs.center_slab_compact_plain(g2, inputs, SLAB_K)),
-        "forces_mma": (lambda: forces_mma(p, g, b), lambda: forces_mma_plain(p, g, b)),
-        "forces_mma_bf16": (lambda: forces_mma(p, g, b, bf16=True),
-                            lambda: forces_mma_plain(p, g, b, bf16=True)),
+    kernels = {
+        "density_cap32": lambda: dw.density_cap32(p, g, b),
+        "density_window": lambda: dw.density_window(p, g, b),
+        "center_slab_dense": lambda: cs.center_slab_dense(g2, inputs),
+        "center_slab_compact": lambda: cs.center_slab_compact(g2, inputs, SLAB_K),
+        "forces_mma": lambda: forces_mma(p, g, b),
+        "forces_mma_bf16": lambda: forces_mma(p, g, b, bf16=True),
     }
-    rows = []
-    for name, (kernel, plain) in timings.items():
-        k_ms, p_ms = cuda_ms(kernel, 10), plain_ms(plain)
-        print(f"  {name:19s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        src, replaces = KERNELS[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms,
-            "plain_ms": p_ms,
-        })
+    S1, S2 = g.num_slots, g2.num_slots
+    h2 = p.h * p.h
+    pairs = pairs_in_support(g, b, h2)  # h from the grid agrees up to rounding
+    extra = empty_home_pairs(g, b, h2)
+    per_home = center_slab_pairs(inputs, cs._consts(g2)[0])
+    mma_flops = pairs * (FORCES_PAIR_FLOPS + XSPH_FLOPS)
+    least = {
+        "density_cap32": bound(S1 * 21, pairs * DENSITY_PAIR_FLOPS),
+        "density_window": bound(S1 * 20, (pairs + extra) * DENSITY_PAIR_FLOPS),
+        # home pos, window pos and mass in; density out
+        "center_slab_dense": bound(S2 * 64, int(per_home.sum()) * DENSITY_PAIR_FLOPS),
+        "center_slab_compact": bound(
+            S2 * 64, int(per_home.clamp(max=SLAB_K).sum()) * DENSITY_PAIR_FLOPS),
+        "forces_mma": bound(S1 * 60, mma_flops),
+        "forces_mma_bf16": bound(S1 * 60, mma_flops),
+    }
+    print(f" pairs in support: C1 {pairs} (+{extra} of empty home slots), C2 center slab "
+          f"{int(per_home.sum())}")
+    rows = [kernel_row(name, launches[name], errs[name], cuda_ms(kernel, 10), plain[name],
+                       least[name])
+            for name, kernel in kernels.items()]
     # the new kernels beside the main path's density.cu and forces.cu, same states
     print(f"  on C1: density.cu {cuda_ms(lambda: density(p, g, b), 10):.3f} ms, "
           f"forces.cu {cuda_ms(lambda: forces(p, g, b), 10):.3f} ms; on C2: "
@@ -465,9 +619,10 @@ def phase_c(main_path) -> list[dict]:
 
 def phase_b() -> tuple[list[dict], tuple]:
     from sph_pie_torch.neighbors import binned as nb
-    from sph_pie_torch.neighbors.density import density, density_plain
+    from sph_pie_torch.neighbors import runs
+    from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.expand import expand, expand_plain
-    from sph_pie_torch.neighbors.forces import forces, forces_plain
+    from sph_pie_torch.neighbors.forces import forces
     from sph_pie_torch.scenes import dam_break_3d
     from sph_pie_torch.solvers import wcsph_binned
 
@@ -525,31 +680,37 @@ def phase_b() -> tuple[list[dict], tuple]:
     check(launches["expand"] >= 1, "expand never launched")
 
     print(" kernels against their plain versions on the final state:")
-    errs, b = compare_kernels(s.params, g, b)
+    errs, plain, b = compare_kernels(s.params, g, b)
     pos_c, vel_c, mass_c, alive = nb._compact(g, b)
     owner = torch.arange(pos_c.shape[0], dtype=torch.int32, device="cuda")
     srt = nb.sort_rows(g, pos_c, vel_c, mass_c, owner, alive)
     ex_args = (srt.first, srt.count, srt.rows, srt.owner, g.cap)
     timings = {
-        "density": (
-            cuda_ms(lambda: density(s.params, g, b), 10),
-            cuda_ms(lambda: density_plain(s.params, g, b), 2),
-        ),
-        "forces": (
-            cuda_ms(lambda: forces(s.params, g, b), 10),
-            cuda_ms(lambda: forces_plain(s.params, g, b), 2),
-        ),
+        "density": (cuda_ms(lambda: density(s.params, g, b), 10), plain["density"]),
+        "forces": (cuda_ms(lambda: forces(s.params, g, b), 10), plain["forces"]),
         "expand": (cuda_ms(lambda: expand(*ex_args), 10), cuda_ms(lambda: expand_plain(*ex_args), 10)),
     }
-    rows = []
-    for name, (k_ms, p_ms) in timings.items():
-        print(f"  {name:8s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        src, replaces = KERNELS[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms,
-            "plain_ms": p_ms,
-        })
+    p, S, dim, es = s.params, g.num_slots, g.dim, b.pos.element_size()
+    pairs = pairs_in_support(g, b, p.h * p.h)
+    pair_flops = FORCES_PAIR_FLOPS + COHESION_FLOPS * p.use_cohesion + XSPH_FLOPS * p.use_xsph
+    ncol, K = srt.rows.shape[1], srt.rows.shape[0]
+    least = {
+        # pos, mass, valid in; rho out
+        "density": bound(S * (dim * es + es + 1 + es), pairs * DENSITY_PAIR_FLOPS),
+        # pos, vel, mass, density, pressure in; acc, xsph out
+        "forces": bound(S * (2 * dim * es + 3 * es + 2 * dim * es), pairs * pair_flops),
+        # first, count, rows, owner in; dense rows, owner out
+        "expand": bound(g.num_cells * 8 + K * (ncol * es + 4) + S * (ncol * es + 4), 0),
+    }
+    R = runs.run_cells(g.cap)
+    occ = (b.mass.reshape(g.num_cells, g.cap) != 0).any(1)
+    n_runs = -(-g.num_cells // R)
+    busy = int(torch.nn.functional.pad(occ, (0, n_runs * R - g.num_cells)).reshape(n_runs, R)
+               .any(1).sum())
+    print(f" pairs in support on the final state: {pairs} ({pairs / n:.2f} per particle); "
+          f"runs of {R} cells with an occupied home slot: {busy} of {n_runs}")
+    rows = [kernel_row(name, launches[name], errs[name], k_ms, p_ms, least[name])
+            for name, (k_ms, p_ms) in timings.items()]
     return rows, (s.params, g, b)
 
 
@@ -567,11 +728,19 @@ def main() -> int:
     print(f"kernel build + load {time.perf_counter() - t0:.2f} s ({_native.library_path().name})",
           flush=True)
     torch.manual_seed(0)
+    seconds = {}
     with torch.no_grad():
-        phase_a()
-        phase_a_micro()
+        for name, phase in (("A", phase_a), ("A micro", phase_a_micro)):
+            t0 = time.perf_counter()
+            phase()
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         rows, main_path = phase_b()
+        seconds["B"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         rows += phase_c(main_path)
+        seconds["C"] = time.perf_counter() - t0
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,7 +77,7 @@ def make_params(
     max_speed: float | None = None,
     eos_gamma: int = 7,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> FluidParams:
     def f(v):
         return torch.as_tensor(v, dtype=dtype, device=device)

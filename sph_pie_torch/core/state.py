@@ -42,7 +42,7 @@ def allocate(
     capacity: int,
     dim: int,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ParticleState:
     """All-inactive state with static capacity."""
 
@@ -66,7 +66,7 @@ def from_positions(
     vel=None,
     mass: float = 1.0,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ParticleState:
     """Build a state from an [n, dim] position array, padding to capacity."""
     pos = torch.as_tensor(np.asarray(pos), dtype=dtype, device=device)

@@ -1,80 +1,243 @@
 // SPH density over the binned slots: rho_i = sum_j m_j W_poly6(|x_i - x_j|).
 //
 // Replaces three kernels of the JAX package with the same function in
-// gather form: one thread per home slot loops over its cell's slab windows
-// and sums m_j W(r) for every occupied window slot, the self pair giving
-// W(0) naturally. Then, with MASK_VALID, 0 where the slot is not valid;
-// then the floor max(rho, 1e-6 rho0). h^2, c6 and the floor come in prm,
-// so each wrapper takes h from where its JAX function does.
+// gather form: each home slot sums m_j W(r) over the occupied slots of its
+// cell's slab windows, the self pair giving W(0) naturally. Then, with
+// MASK_VALID, 0 where the slot is not valid; then the floor
+// max(rho, 1e-6 rho0). h^2, c6 and the floor come in prm, so each wrapper
+// takes h from where its JAX function does.
 //   * neighbors/pallas_sym.py density_sym (the main path, h = params.h) and
 //     neighbors/pallas_pair.py density_pallas (h from the grid geometry):
-//     MASK_VALID, as their wrappers mask before the floor;
+//     MASK_VALID, as their wrappers mask before the floor -> density_runs;
 //   * neighbors/pallas_density.py density_pallas (h = params.h): no mask,
 //     so an empty slot (pos 0, mass 0) keeps whatever density its window
-//     gives the origin, and is only floored.
+//     gives the origin, and is only floored -> density_every_slot, the
+//     one-thread-per-slot gather (not redesigned).
 //
-// What bounds it on the H100: per home slot it reads 3^(DIM-1) windows of
-// 3*cap slots (1080 at cap 40 in 3D), 16 bytes each, through L1/L2; the
-// window of a cell is shared by the cap threads of that cell (neighbouring
-// lanes of one warp), so the reads broadcast from cache and the kernel is
-// bound by load instructions and latency, not by DRAM. The design keeps it
-// simple: with MASK_VALID, empty home slots (most of the slots) exit at
-// once; empty and out-of-range window slots are skipped before any math.
-// Staging each slab's window in shared memory was measured slower than
-// these L1 gathers with the mask and faster without it (PERF.md); staging
-// the unmasked arm and pairs-once are later work.
+// What bounds it on the H100. Not DRAM: the function reads 17 bytes per
+// slot and writes 4 (0.067 ms for the 10.7M slots of the 1M dam break at
+// 3.35 TB/s), and its ~30 pairs in support per particle at 14 flops are
+// 0.4 GFLOP (0.006 ms at 67 TFLOP/s). The walk over candidates bounds it:
+// instruction issue and latency. The first design (one thread per slot
+// over all 10.7M slots, 9.3% of them occupied) gave every live thread all
+// 9 x 3 x 40 = 1080 window slots to walk, ~45% of them empty and ~97% of
+// the rest beyond h, with a global load for each mass and coordinate, and
+// warps split across two cells: 1.18 ms on the 1M dam break.
+//
+// This design (density_runs) gives work only to what is occupied. One CTA
+// takes a run of R cells along the contiguous axis. Each warp first checks
+// the run's masses itself; an all-empty run (most of the grid at 1M) writes
+// the floor with coalesced stores and exits before any barrier. Otherwise
+// the occupied home slots are packed by warp ballot, one thread per
+// occupied home slot. For each slab the run's (R+2)-cell window of pos and
+// mass is one linear span per field, copied into shared memory by the bulk
+// copy engine (cp.async.bulk on an mbarrier), double-buffered so that slab
+// s+2 is in flight while s is packed and walked; the staged slots are
+// packed by ballot into float4 (x, y, z, m) records of the occupied slots,
+// with each window cell's start. A home thread then walks only the records
+// of its 3 window cells. What is left is the walk of occupied candidates
+// (~600 per particle, ~5% of them in support) and, per run and slab, the
+// copy, the packing and two barriers. The summation order is the first
+// design's: within a slab, candidates in slot order into a partial,
+// partials added in slab order.
 #include "common.cuh"
 
 namespace {
 
-template <typename T, int DIM, bool MASK_VALID>
+// The first design, kept for the unmasked arm: one thread per slot.
+template <typename T, int DIM>
 __global__ void __launch_bounds__(sph::kThreads)
-density_kernel(const T* __restrict__ pos, const T* __restrict__ mass,
-               const bool* __restrict__ valid, const T* __restrict__ prm,
-               T* __restrict__ rho, long long S, int cap, long long s0,
-               long long s1) {
+density_every_slot(const T* __restrict__ pos, const T* __restrict__ mass,
+                   const T* __restrict__ prm, T* __restrict__ rho, long long S, int cap,
+                   long long s0, long long s1) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= S) return;
   const T h2 = prm[0], c6 = prm[1], floor_rho = prm[2];
   T acc = T(0);
-  if (!MASK_VALID || mass[i] != T(0)) {  // masked: an empty home ends at 0
-    T xi[DIM];
+  T xi[DIM];
 #pragma unroll
-    for (int k = 0; k < DIM; ++k) xi[k] = pos[i * DIM + k];
-    const long long c = i / cap;
-    long long sh[9];
-    const int ns = sph::slab_shifts<DIM>(s0, s1, sh);
-    for (int s = 0; s < ns; ++s) {
-      const long long j0 = (c + sh[s] - 1) * cap;
-      const long long lo = j0 > 0 ? j0 : 0;
-      const long long hi = j0 + 3 * cap < S ? j0 + 3 * cap : S;
+  for (int k = 0; k < DIM; ++k) xi[k] = pos[i * DIM + k];
+  const long long c = i / cap;
+  long long sh[9];
+  const int ns = sph::slab_shifts<DIM>(s0, s1, sh);
+  for (int s = 0; s < ns; ++s) {
+    const long long j0 = (c + sh[s] - 1) * cap;
+    const long long lo = j0 > 0 ? j0 : 0;
+    const long long hi = j0 + 3 * cap < S ? j0 + 3 * cap : S;
+    T part = T(0);
+    for (long long j = lo; j < hi; ++j) {
+      const T mj = mass[j];
+      if (mj == T(0)) continue;  // empty slot: weight 0
+      T d = xi[0] - pos[j * DIM];
+      T r2 = d * d;
+#pragma unroll
+      for (int k = 1; k < DIM; ++k) {
+        d = xi[k] - pos[j * DIM + k];
+        r2 = r2 + d * d;
+      }
+      const T q = h2 - r2;
+      if (q <= T(0)) continue;  // outside the support: W = 0 exactly
+      part += mj * (c6 * q * q * q);
+    }
+    acc += part;
+  }
+  rho[i] = acc < floor_rho ? floor_rho : acc;
+}
+
+// Shared memory of one run: W = (R+2)*cap window slots, H = R*cap home slots.
+template <typename T, int DIM>
+struct RunSmem {
+  uint64_t* bar;       // [2] one mbarrier per stage
+  T* pos[2];           // [W*DIM] staged window positions
+  T* mass[2];          // [W] staged window masses
+  sph::Rec<T>* rec;    // [W] packed (x, y, z, m) of the occupied window slots
+  int* start;          // [R+3] first record of each window cell
+  unsigned* wmask;     // [W/32] occupancy of the stage being packed
+  unsigned* hmask;     // [H/32] occupancy of the home slots
+  int* hidx;           // [H] home slot -> home record, -1 if empty
+  int* hcell;          // [H] home record -> run cell
+  sph::Rec<T>* hrec;   // [H] home (x, y, z, -)
+  T* hacc;             // [H] home density
+  __host__ __device__ RunSmem(sph::Carve& c, int R, int cap) {
+    const int W = (R + 2) * cap, H = R * cap;
+    bar = c.take<uint64_t>(2);
+    for (int b = 0; b < 2; ++b) {
+      pos[b] = c.take<T>(static_cast<long long>(W) * DIM);
+      mass[b] = c.take<T>(W);
+    }
+    rec = c.take<sph::Rec<T>>(W);
+    start = c.take<int>(R + 3);
+    wmask = c.take<unsigned>((W + 31) / 32);
+    hmask = c.take<unsigned>((H + 31) / 32);
+    hidx = c.take<int>(H);
+    hcell = c.take<int>(H);
+    hrec = c.take<sph::Rec<T>>(H);
+    hacc = c.take<T>(H);
+  }
+};
+
+template <typename T, int DIM>
+__global__ void __launch_bounds__(sph::kRunThreads)
+density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
+             const bool* __restrict__ valid, const T* __restrict__ prm, T* __restrict__ rho,
+             long long S, int cap, int R, long long s0, long long s1) {
+  const long long c0 = static_cast<long long>(blockIdx.x) * R;
+  const long long base = c0 * cap;  // first home slot
+  const int H = static_cast<int>(S - base < static_cast<long long>(R) * cap
+                                     ? S - base : static_cast<long long>(R) * cap);
+  const T h2 = prm[0], c6 = prm[1], floor_rho = prm[2];
+  if (sph::warp_all_zero(mass + base, H)) {  // empty run: 0, floored
+    const T out = T(0) < floor_rho ? floor_rho : T(0);
+    for (int i = threadIdx.x; i < H; i += blockDim.x) rho[base + i] = out;
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  sph::Carve carve(smem_raw);
+  const RunSmem<T, DIM> sm(carve, R, cap);
+  const int W = (R + 2) * cap, nchW = (W + 31) / 32, nchH = (H + 31) / 32;
+  const int warp = threadIdx.x >> 5;
+  const int ns = DIM == 2 ? 3 : 9;
+
+  auto stage = [&](int s) {  // one thread: bulk-copy slab s's window
+    const int b = s & 1;
+    const T* src[2] = {pos, mass};
+    T* const dst[2] = {sm.pos[b], sm.mass[b]};
+    const int width[2] = {DIM, 1};
+    const sph::Span w = sph::window(c0, sph::slab_shift<DIM>(s, s0, s1), cap, W, S);
+    sph::stage_span(w, src, dst, width, &sm.bar[b]);
+  };
+  if (threadIdx.x == 0) {
+    sph::mbar_init(&sm.bar[0]);
+    sph::mbar_init(&sm.bar[1]);
+    stage(0);
+    if (ns > 1) stage(1);
+  }
+
+  // Home slots: one record per occupied slot, in slot order.
+  for (int i = threadIdx.x; i < H; i += blockDim.x) sm.hidx[i] = -1;
+  sph::occupancy(mass + base, H, 0, H, sm.hmask);
+  __syncthreads();
+  const sph::ChunkScan hs = sph::scan_chunks(sm.hmask, nchH);
+  const int nh = hs.total;
+  sph::pack_occupied(sm.hmask, nchH, hs, [&](int i, int r) {
+    sph::Rec<T> x{};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) x.v[d] = pos[(base + i) * DIM + d];
+    sm.hidx[i] = r;
+    sm.hcell[r] = i / cap;
+    sm.hrec[r] = x;
+    sm.hacc[r] = T(0);
+  });
+
+  for (int s = 0; s < ns; ++s) {
+    const int b = s & 1;
+    const sph::Span w = sph::window(c0, sph::slab_shift<DIM>(s, s0, s1), cap, W, S);
+    sph::mbar_wait(&sm.bar[b], (s >> 1) & 1);
+    sph::occupancy(sm.mass[b], W, w.lo, w.hi, sm.wmask);
+    __syncthreads();  // masks complete; the previous walk is over
+    const sph::ChunkScan sc = sph::scan_chunks(sm.wmask, nchW);
+    sph::pack_occupied(sm.wmask, nchW, sc, [&](int j, int r) {
+      sph::Rec<T> p{};
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) p.v[d] = sm.pos[b][j * DIM + d];
+      p.v[3] = sm.mass[b][j];
+      sm.rec[r] = p;
+    });
+    if (warp == 0) sph::cell_starts(sc, sm.wmask, nchW, R + 2, cap, sm.start);
+    __syncthreads();  // records ready; stage b is free again
+    if (threadIdx.x == 0 && s + 2 < ns) {
+      sph::fence_proxy_async();
+      stage(s + 2);
+    }
+    for (int k = threadIdx.x; k < nh; k += blockDim.x) {
+      const int lc = sm.hcell[k];
+      const int j1 = sm.start[lc + 3];
+      const sph::Rec<T> xi = sm.hrec[k];
       T part = T(0);
-      for (long long j = lo; j < hi; ++j) {
-        const T mj = mass[j];
-        if (mj == T(0)) continue;  // empty slot: weight 0
-        T d = xi[0] - pos[j * DIM];
+      for (int j = sm.start[lc]; j < j1; ++j) {
+        const sph::Rec<T> p = sm.rec[j];
+        T d = xi.v[0] - p.v[0];
         T r2 = d * d;
 #pragma unroll
-        for (int k = 1; k < DIM; ++k) {
-          d = xi[k] - pos[j * DIM + k];
+        for (int e = 1; e < DIM; ++e) {
+          d = xi.v[e] - p.v[e];
           r2 = r2 + d * d;
         }
         const T q = h2 - r2;
         if (q <= T(0)) continue;  // outside the support: W = 0 exactly
-        part += mj * (c6 * q * q * q);
+        part += p.v[3] * (c6 * q * q * q);
       }
-      acc += part;
+      sm.hacc[k] += part;
     }
   }
-  if (MASK_VALID && !valid[i]) acc = T(0);
-  rho[i] = acc < floor_rho ? floor_rho : acc;
+  __syncthreads();
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    const int r = sm.hidx[i];
+    T acc = r >= 0 ? sm.hacc[r] : T(0);
+    if (!valid[base + i]) acc = T(0);
+    rho[base + i] = acc < floor_rho ? floor_rho : acc;
+  }
 }
 
-template <typename T, int DIM, bool MASK_VALID>
-void go(const T* p, const T* m, const bool* v, const T* c, T* out, long long S, int cap,
-        long long s0, long long s1, cudaStream_t st) {
-  density_kernel<T, DIM, MASK_VALID><<<sph::blocks_for(S), sph::kThreads, 0, st>>>(
-      p, m, v, c, out, S, cap, s0, s1);
+template <typename T, int DIM>
+cudaError_t go(const T* p, const T* m, const bool* v, const T* c, T* out, long long S,
+               int cap, long long s0, long long s1, int mask_valid, cudaStream_t st) {
+  if (!mask_valid) {
+    density_every_slot<T, DIM><<<sph::blocks_for(S), sph::kThreads, 0, st>>>(
+        p, m, c, out, S, cap, s0, s1);
+    return cudaGetLastError();
+  }
+  const int run = sph::run_cells(cap);
+  sph::Carve carve(nullptr);  // counts the bytes of the layout
+  const RunSmem<T, DIM> layout(carve, run, cap);
+  (void)layout;
+  const auto kernel = density_runs<T, DIM>;
+  const cudaError_t err = sph::allow_smem(kernel, carve.off);
+  if (err != cudaSuccess) return err;
+  const long long runs = (S / cap + run - 1) / run;
+  kernel<<<static_cast<unsigned>(runs), sph::kRunThreads, carve.off, st>>>(p, m, v, c, out, S,
+                                                                           cap, run, s0, s1);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -88,16 +251,10 @@ int launch(const void* pos, const void* mass, const void* valid, const void* prm
   const auto c = static_cast<const T*>(prm);
   const auto out = static_cast<T*>(rho);
   if (S == 0) return cudaGetLastError();
-  if (dim == 2) {
-    if (mask_valid) go<T, 2, true>(p, m, v, c, out, S, cap, s0, s1, st);
-    else go<T, 2, false>(p, m, v, c, out, S, cap, s0, s1, st);
-  } else if (dim == 3) {
-    if (mask_valid) go<T, 3, true>(p, m, v, c, out, S, cap, s0, s1, st);
-    else go<T, 3, false>(p, m, v, c, out, S, cap, s0, s1, st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (mask_valid && !sph::run_cap_ok(cap)) return cudaErrorInvalidValue;
+  if (dim == 2) return go<T, 2>(p, m, v, c, out, S, cap, s0, s1, mask_valid, st);
+  if (dim == 3) return go<T, 3>(p, m, v, c, out, S, cap, s0, s1, mask_valid, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -10,9 +10,10 @@ of the fold it is tested against, ``solvers/wcsph_binned.py``
 over the 3^(dim-1) slab windows of slot i's cell; then 0 where the slot is
 not valid, then floored at 1e-6 rest_density. ``h`` is ``params.h``.
 
-``density`` launches the CUDA kernel (``csrc/density.cu``) for CUDA
-tensors and runs ``density_plain`` (the blocked slab fold) for CPU tensors;
-any other device raises.
+``density`` launches the CUDA kernel (``csrc/density.cu``, its staged
+arm over runs of cells: ``neighbors/runs.py``) for CUDA tensors and runs
+``density_plain`` (the blocked slab fold) for CPU tensors; any other
+device raises.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from sph_pie_torch import _native
 from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
+from sph_pie_torch.neighbors import runs
 
 
 def density_plain(
@@ -45,7 +47,8 @@ def density_plain(
 def density(
     params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
 ) -> torch.Tensor:
-    """``density_plain`` on the CPU; the ``density`` CUDA kernel on the card."""
+    """``density_plain`` on the CPU; the ``density`` CUDA kernel on the card,
+    which raises on a cap it cannot stage (``runs.check_staging``)."""
     if b.pos.device.type == "cpu":
         return density_plain(params, grid, b)
     if b.pos.device.type != "cuda":
@@ -63,6 +66,7 @@ def density(
         "density", dt, dev, pos=(b.pos, None), mass=(b.mass, None),
         valid=(b.valid, torch.bool), prm=(prm, None),
     )
+    runs.check_staging("density", grid.cap, pos=b.pos, mass=b.mass)
     rho = torch.empty(S, dtype=dt, device=dev)
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(

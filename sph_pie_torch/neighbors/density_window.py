@@ -32,6 +32,7 @@ from sph_pie_torch import _native
 from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
+from sph_pie_torch.neighbors import runs
 
 
 def _check(name: str, grid: nb.BinnedGrid, b: nb.BinnedState, cap32: bool) -> None:
@@ -98,6 +99,8 @@ def _launch(name: str, grid: nb.BinnedGrid, b: nb.BinnedState, prm, mask_valid: 
         name, dt, dev, pos=(b.pos, None), mass=(b.mass, None),
         valid=(b.valid, torch.bool), prm=(prm, None),
     )
+    if mask_valid:  # the unmasked arm gives a thread to every slot: no runs
+        runs.check_staging(name, grid.cap, pos=b.pos, mass=b.mass)
     rho = torch.empty(grid.num_slots, dtype=dt, device=dev)
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(

@@ -12,9 +12,10 @@ per-slot pr2 = p/rho^2, m_rho = m/rho:
 (cohesion C only with ``use_cohesion``, XSPH only with ``use_xsph``). Both
 are 0 on slots that are not valid. ``h`` is ``params.h``.
 
-``forces`` launches the CUDA kernel (``csrc/forces.cu``) for CUDA tensors
-and runs ``forces_plain`` (the blocked slab fold) for CPU tensors; any
-other device raises.
+``forces`` launches the CUDA kernel (``csrc/forces.cu``, staged over runs
+of cells: ``neighbors/runs.py``) for CUDA tensors and runs
+``forces_plain`` (the blocked slab fold) for CPU tensors; any other device
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from sph_pie_torch import _native
 from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
+from sph_pie_torch.neighbors import runs
 
 
 def _per_slot(b: nb.BinnedState):
@@ -93,7 +95,8 @@ def forces_plain(
 def forces(
     params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``forces_plain`` on the CPU; the ``forces`` CUDA kernel on the card."""
+    """``forces_plain`` on the CPU; the ``forces`` CUDA kernel on the card,
+    which raises on a cap it cannot stage (``runs.check_staging``)."""
     if b.pos.device.type == "cpu":
         return forces_plain(params, grid, b)
     if b.pos.device.type != "cuda":
@@ -121,6 +124,7 @@ def forces(
         mass=(b.mass, None), pr2=(pr2, None), m_rho=(m_rho, None),
         inv_rho=(inv_rho, None), prm=(prm, None),
     )
+    runs.check_staging("forces", grid.cap, pos=b.pos, mass=b.mass)
     acc = torch.empty((S, dim), dtype=dt, device=dev)
     xsph = torch.empty((S, dim), dtype=dt, device=dev)
     s0, s1 = (grid.strides + (0,))[:2]

@@ -124,7 +124,7 @@ def block_scene(
     skin_frac: float = 0.25,
     wall_layers: int = 0,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     **param_overrides,
 ) -> Scene:
     """Generic block-of-fluid scene in an AABB domain.
@@ -199,7 +199,7 @@ def block_scene(
 def dam_break_2d(
     n_target: int = 4096,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     **overrides,
 ) -> Scene:
     """2D dam break, ~n_target particles: a 0.4 x 0.6 fluid column in a unit
@@ -222,7 +222,7 @@ def dam_break_2d(
 def dam_break_3d(
     n_target: int = 100_000,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     **overrides,
 ) -> Scene:
     """3D dam break with surface tension and XSPH: a 0.3 x 0.4 x 0.6 column

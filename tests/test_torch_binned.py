@@ -34,7 +34,7 @@ def scenes():
     out = {}
     for name, (make, n, kw) in SCENES.items():
         js = getattr(jb, make)(n, **kw)
-        out[name] = (js, getattr(tb, make)(n, **kw), js.binned_state())
+        out[name] = (js, getattr(tb, make)(n, device="cpu", **kw), js.binned_state())
     return out
 
 
@@ -49,7 +49,7 @@ def _assert_state_equal(want_b, got_b):
 @pytest.mark.parametrize("n", [400, 1500, 1_000_000], ids=["2d_400", "3d_1500", "3d_1M"])
 def test_grid_geometry_matches(n):
     make = "dam_break_2d" if n == 400 else "dam_break_3d"
-    js, ts = getattr(jb, make)(n), getattr(tb, make)(n)
+    js, ts = getattr(jb, make)(n), getattr(tb, make)(n, device="cpu")
     jg, tg = js.bgrid, ts.bgrid
     assert tg == convert.binned_grid(dataclasses.asdict(jg))
     for f in dataclasses.fields(tg):

@@ -77,7 +77,7 @@ def test_tait_pressure_matches_reference(dim, f64):
             j_eos.tait_pressure(j_make_params(**kw, dtype=jd), jnp.asarray(rho, jd))
         )
     got = t_eos.tait_pressure(
-        t_make_params(**kw, dtype=td), torch.tensor(rho, dtype=td)
+        t_make_params(**kw, dtype=td, device="cpu"), torch.tensor(rho, dtype=td)
     )
     assert (got.numpy() == 0).sum() == (want == 0).sum() > 0
     _close(got, want, rtol)

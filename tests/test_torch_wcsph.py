@@ -73,7 +73,7 @@ def test_100_steps_f64_match_reference_and_oracle():
         scene = jb.dam_break_2d(n_target=400, dtype=jnp.float64, viscosity=0.05)
         jb100 = jw.simulate(scene.params, scene.bgrid, scene.binned_state(), 100)
         want = np.asarray(jnb.unbin(scene.bgrid, jb100, scene.state.capacity).pos)
-    ts = tb.dam_break_2d(n_target=400, dtype=torch.float64, viscosity=0.05)
+    ts = tb.dam_break_2d(n_target=400, dtype=torch.float64, viscosity=0.05, device="cpu")
     b = tw.simulate(ts.params, ts.bgrid, ts.binned_state(), 100)
     assert int(b.overflow) == 0 and int(b.n_rebins) == int(jb100.n_rebins)
     st = tnb.unbin(ts.bgrid, b, ts.state.capacity)
@@ -89,7 +89,7 @@ def test_port_runs_without_jax():
         "import sys\n"
         "from sph_pie_torch.scenes import dam_break_2d\n"
         "from sph_pie_torch.solvers import wcsph_binned\n"
-        "s = dam_break_2d(200)\n"
+        "s = dam_break_2d(200, device='cpu')\n"
         "b = wcsph_binned.step(s.params, s.bgrid, s.binned_state())\n"
         "assert int(b.overflow) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'sph_pie_tpu'))\n"
@@ -114,7 +114,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_unported_features_raise():
-    s = tb.dam_break_2d(200)
+    s = tb.dam_break_2d(200, device="cpu")
     b = s.binned_state()
     with pytest.raises(NotImplementedError, match="obstacles"):
         tw.step(s.params, s.bgrid, b, obstacles=object())
