@@ -13,13 +13,21 @@ cap-8 cells checks the placement of overfull cells against the CPU.
 Density and forces are also checked where their staged windows pass slot
 0 and slot S (a 3D 20k scene with two particles binned into the first and
 the last interior cell, in float32 and float64), in float64 on the 2D
-scene, and on the full cap-8 cells of the overfull scene.
+scene, and on the full cap-8 cells of the overfull scene. ``expand`` is
+also held bit for bit against its plain version on ragged inputs made from a
+seed (4 to 8 columns, caps 8, 32 and 40 through its 16-byte arm and cap 5
+through its per-slot arm, both dtypes, more overfull cells than the
+reference kernel's slack absorbs, rows that would pass K, K = 0, inputs
+that start off a 16-byte boundary).
 
 Phase A also holds the four kernels of the reference's drop-in and
 hardware-harness paths against their plain versions: both window
 densities and the tensor-core forces (both arms) on a cap-32 3D dam break
 (100k, skin 0.25, no cohesion) and the 2D one, the center-slab density
-(dense, compact at K = 32 and K = 4) on the cap-40 3D dam break.
+(dense, compact at K = 32 and K = 4) on the cap-40 3D dam break. The
+unmasked window density is also checked on that 3D state after some of its
+empty slots were given positions of their own inside the fluid, at cap 32
+(its runs arm) and rebinned at cap 30 (its one-thread-per-slot arm).
 
 Phase B drives the main path at the flagship size — ``dam_break_3d(1M)``,
 ``bin_state``, 5 warm steps, 3 timed reps of 20 steps — with every launch
@@ -345,6 +353,8 @@ def phase_a() -> None:
             check(err <= TRAJ_ATOL, "trajectory differs from the CPU")
 
     edge_runs()
+    print(" expand on ragged rows:")
+    expand_cases()
 
     # The float64 arms of density and forces on the 2D state.
     s = dam_break_2d(4096, dtype=torch.float64, device="cuda")
@@ -362,6 +372,110 @@ def phase_a() -> None:
     check(not diff and int(on_card.overflow) > 0, f"overflowing bin_state differs in {diff}")
     # full cells at the smallest cap: the smallest staged spans
     compare_kernels(s.params, s.bgrid, on_card, with_expand=False)
+
+
+def ragged_rows(rng, C: int, cap: int, ncol: int, dtype, cut: str):
+    """(first, count, rows, owner) of C cells on the card: counts up to cap
+    with stretches of empty cells, every twelfth cell overfull by up to 2 cap
+    rows. ``cut``: "past K" drops the last rows of the last cell, "K == 0"
+    drops all rows, "unaligned" starts rows and owner 4 or 8 bytes past a
+    16-byte boundary. Returns also the most rows dropped in 128 cells."""
+    count = rng.integers(0, cap + 1, C)
+    count[rng.integers(0, 2, -(-C // 150)).repeat(150)[:C] == 1] = 0
+    over = rng.choice(C, C // 12, replace=False)
+    count[over] = cap + rng.integers(1, 2 * cap + 1, len(over))
+    count[-1] = cap
+    first = np.cumsum(count) - count
+    K = int(count.sum())
+    if cut == "past K":
+        K -= cap // 2
+    elif cut == "K == 0":
+        K = 0
+    dropped = np.add.reduceat(np.maximum(count - cap, 0), np.arange(0, C, 128)).max()
+    pad = cut == "unaligned"
+    rows = torch.as_tensor(rng.normal(size=K * ncol + pad), dtype=dtype, device="cuda")
+    owner = torch.as_tensor(rng.permutation(K + pad), dtype=torch.int32, device="cuda")
+    rows, owner = rows[int(pad):].view(K, ncol), owner[int(pad):]
+    check(not pad or (rows.data_ptr() % 16 and owner.data_ptr() % 16), "views start aligned")
+    first, count = (torch.as_tensor(a, dtype=torch.int32, device="cuda") for a in (first, count))
+    return (first, count, rows, owner), int(dropped)
+
+
+def expand_cases() -> None:
+    """``expand`` against ``expand_plain``, bit for bit, in both arms."""
+    from sph_pie_torch import _native
+    from sph_pie_torch.neighbors import runs
+    from sph_pie_torch.neighbors.expand import expand, expand_plain
+
+    rng = np.random.default_rng(11)
+    C = 3001
+    ran = set()
+    for cap in (8, 32, 40, 5):
+        for dt in (torch.float32, torch.float64):
+            n, most = 0, 0
+            for ncol in (5, 6, 7, 8):
+                for cut in ("none", "past K", "K == 0", "unaligned"):
+                    args, dropped = ragged_rows(rng, C, cap, ncol, dt, cut)
+                    (dk, ok_), (dp, op) = expand(*args, cap), expand_plain(*args, cap)
+                    check(torch.equal(dk, dp) and torch.equal(ok_, op),
+                          f"expand disagrees: cap {cap}, ncol {ncol}, {dt}, {cut}")
+                    # the arm the launcher takes for these outputs, by its own rule
+                    R = _native.library().sph_expand_run_cells(
+                        dk.data_ptr(), ok_.data_ptr(), cap, ncol, dk.element_size())
+                    check(R == runs.expand_run_cells(cap, ncol, dk.element_size(), dk, ok_),
+                          f"the launcher's runs of {R} cells are not runs.py's")
+                    n, most = n + 1, max(most, dropped)
+            arm = f"16-byte arm, runs of {R} cells" if R > 0 else "per-slot arm"
+            ran.add(R > 0)
+            print(f"  expand cap {cap:2d} {str(dt):13s} {arm}: {n} cases equal to plain; up to "
+                  f"{most} rows dropped in 128 cells ({most / cap:.1f} caps)")
+            check(most > 4 * cap, "too few overfull cells")
+    check(ran == {True, False}, "both arms of expand must run")
+
+
+def window_moved_empties(params, grid, b) -> None:
+    """``density_window`` where empty slots do not all sit at zero: in cells
+    that hold particles, some empty slots get positions of their own beside
+    a particle of the cell (two of them the same one) and one gets a
+    particle's position itself. Then the same particles rebinned into cells
+    of cap 30, which the runs do not take."""
+    import dataclasses
+
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.neighbors import runs
+    from sph_pie_torch.neighbors.density_window import density_window, density_window_plain
+    from sph_pie_torch.utils.struct import replace
+
+    floor = 1e-6 * float(params.rest_density)
+    for g, state in ((grid, b), (dataclasses.replace(grid, cap=30), None)):
+        if state is None:
+            pos, vel, mass, alive = nb._compact(grid, b)
+            owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+            state = nb._bin_rows(g, pos, vel, mass, owner, alive)
+        C, cap = g.num_cells, g.cap
+        occ = (state.mass.reshape(C, cap) != 0).sum(1)
+        cells = ((occ > 0) & (occ < cap - 2)).nonzero()[:, 0]
+        cells = cells[:: max(1, len(cells) // 64)]
+        real = cells * cap                  # the cell's first slot holds a particle
+        empty = cells * cap + occ[cells]    # its first empty slot, and two more
+        pos = state.pos.clone()
+        h = float(params.h)
+        pos[empty] = pos[real] + 0.3 * h
+        pos[empty + 1] = pos[real] + 0.3 * h
+        pos[empty + 2] = pos[real] - 0.2 * h
+        pos[empty[0] + 2] = pos[real[0]]
+        moved = torch.cat([empty, empty + 1, empty + 2])
+        check(bool((state.mass[moved] == 0).all() and (state.mass[real] != 0).all()),
+              "moved slots must be empty")
+        st = replace(state, pos=pos)
+        rk, rp = density_window(params, g, st), density_window_plain(params, g, st)
+        rel = ((rk - rp).abs() / rp).max().item()
+        arm = "runs" if runs.stageable(cap, st.pos, st.mass) else "thread per slot"
+        print(f"  density_window cap {cap} ({arm}), {len(moved)} empty slots moved into the fluid: "
+              f"max rel err {rel:.3e} over all {rk.numel()} slots (bound {WINDOW_RTOL:g}); "
+              f"moved slots above the floor: {int((rk[moved] > 2 * floor).sum())}")
+        check(rel <= WINDOW_RTOL, f"density_window disagrees at cap {cap}")
+        check(bool((rk[moved] > 2 * floor).all()), "a moved empty slot gathered nothing")
 
 
 def edge_runs() -> None:
@@ -517,6 +631,8 @@ def phase_a_micro() -> None:
         check(int(b.overflow) == 0, f"{s.name}: overflow")
         b = with_density(s.params, s.bgrid, b)
         check_micro(s.params, s.bgrid, b, micro_outputs(s.params, s.bgrid, b))
+        if s.bgrid.dim == 3:
+            window_moved_empties(s.params, s.bgrid, b)
 
     s = dam_break_3d(100_000, device="cuda")
     b = wcsph_binned.simulate(s.params, s.bgrid, s.binned_state(), 10)

@@ -32,8 +32,11 @@ NVCC_FLAGS = (
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# Every launcher returns cudaGetLastError() and takes the stream last.
+# Every launcher returns cudaGetLastError() and takes the stream last;
+# sph_expand_run_cells launches nothing and returns the placement's rule.
 _SIGNATURES = {
+    "sph_expand_run_cells": [_P, _P, _I, _I, _I],
+    "sph_density_window_f32": [_P] * 5 + [_L, _I, _I, _L, _L, _P],
     "sph_center_slab_f32": [_P] * 8 + [_L, _I, _F, _F, _I, _P],
     "sph_forces_mma_f32": [_P] * 9 + [_L, _I, _L, _L, _I, _P],
     **{
@@ -41,7 +44,7 @@ _SIGNATURES = {
         for t in ("f32", "f64")
     },
     **{
-        f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _P]
+        f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P]
         for t in ("f32", "f64")
     },
     **{

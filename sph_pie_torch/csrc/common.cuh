@@ -6,7 +6,7 @@
 // contiguous cells c + shift - 1 .. c + shift + 1, i.e. 3*cap contiguous
 // slots. Slots outside [0, S) count as empty.
 //
-// The staged pair kernels (density.cu masked, forces.cu) work on runs of R
+// The staged pair kernels (density.cu, forces.cu) work on runs of R
 // consecutive cells: for each slab the run's window is the (R+2)*cap
 // contiguous slots c0 + shift - 1 .. c0 + shift + R, so each field of a
 // slab window is one linear span, copied into shared memory by the bulk
@@ -76,6 +76,29 @@ inline int run_cells(int cap) {
 
 // True when the staged kernels take this cap.
 inline bool run_cap_ok(int cap) { return cap > 0 && cap % 4 == 0 && cap <= kHomeSlots; }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Rebin placement (expand.cu): one CTA of kExpandThreads threads takes a run
+// of cells holding at most kExpandSlots slots, fewer where the run's output
+// span (rows and owners, assembled in shared memory) would pass kExpandBytes.
+constexpr int kExpandThreads = 128;
+constexpr int kExpandSlots = 640;
+constexpr int kExpandBytes = 49152;  // the 48 KB a launch gets unasked
+
+// Cells per run of the placement's 16-byte arm, 0 where it cannot take the
+// layout: the cap is not a multiple of 4 (a cell's rows and its int32
+// owners then do not both end on 16-byte boundaries), an output does not
+// start on one, or one cell's span does not fit in kExpandBytes.
+inline int expand_run_cells(const void* out, const void* out_owner, int cap, int ncol,
+                            int itemsize) {
+  if (cap <= 0 || cap % 4 || ncol <= 0 || !aligned16(out) || !aligned16(out_owner)) return 0;
+  // rows, owners, first and kept rows of a cell; 64 bytes of alignment slack
+  const long long per_cell = static_cast<long long>(cap) * (ncol * itemsize + 4) + 8;
+  const long long fit = (kExpandBytes - 64) / per_cell;
+  const long long want = kExpandSlots / cap > 0 ? kExpandSlots / cap : 1;
+  return static_cast<int>(fit < want ? fit : want);
+}
 
 // Four values of one packed slot: coordinates (the unused z of 2D is 0)
 // and one more per-slot value; one 16-byte shared-memory load in f32, two

@@ -3,16 +3,15 @@
 // Replaces three kernels of the JAX package with the same function in
 // gather form: each home slot sums m_j W(r) over the occupied slots of its
 // cell's slab windows, the self pair giving W(0) naturally. Then, with
-// MASK_VALID, 0 where the slot is not valid; then the floor
-// max(rho, 1e-6 rho0). h^2, c6 and the floor come in prm, so each wrapper
-// takes h from where its JAX function does.
+// MASK, 0 where the slot is not valid; then the floor max(rho, 1e-6 rho0).
+// h^2, c6 and the floor come in prm, so each wrapper takes h from where its
+// JAX function does.
 //   * neighbors/pallas_sym.py density_sym (the main path, h = params.h) and
 //     neighbors/pallas_pair.py density_pallas (h from the grid geometry):
-//     MASK_VALID, as their wrappers mask before the floor -> density_runs;
+//     MASK, as their wrappers mask before the floor (sph_density_*);
 //   * neighbors/pallas_density.py density_pallas (h = params.h): no mask,
-//     so an empty slot (pos 0, mass 0) keeps whatever density its window
-//     gives the origin, and is only floored -> density_every_slot, the
-//     one-thread-per-slot gather (not redesigned).
+//     so an empty slot (mass 0) keeps whatever density its windows give its
+//     stored position, and is only floored (sph_density_window_f32).
 //
 // What bounds it on the H100. Not DRAM: the function reads 17 bytes per
 // slot and writes 4 (0.067 ms for the 10.7M slots of the 1M dam break at
@@ -40,11 +39,62 @@
 // copy, the packing and two barriers. The summation order is the first
 // design's: within a slab, candidates in slot order into a partial,
 // partials added in slab order.
+//
+// Without the mask (density_runs<.., false>) every slot is a home slot, but
+// 91% of them at 1M are empty slots that sit at one stored position per
+// cell (the zeros the placement wrote), and a candidate of mass 0 adds
+// exactly 0. So the walk shrinks to that of the masked kernel plus one home
+// per cell. A small pass first flags the cells that hold mass (cell_flags);
+// a run exits early only when no cell of any of its slab windows is
+// flagged, for then no home slot of it, occupied or empty, can gather
+// anything: an empty run beside occupied cells is walked. Home records are
+// the occupied slots and, of each cell's empty slots, the first one and
+// every one whose stored position differs from the first one's in any bit;
+// the others share the first one's record, hence its result, which is
+// theirs bit for bit. Candidates stay the occupied window slots only. The
+// first design (density_every_slot: a thread for every slot, walking every
+// window slot from global memory) stays as the arm for a cap outside the
+// runs' rule or inputs that do not start on 16-byte boundaries.
 #include "common.cuh"
 
 namespace {
 
-// The first design, kept for the unmasked arm: one thread per slot.
+template <typename T> struct Bits;
+template <> struct Bits<float> {
+  static __device__ __forceinline__ unsigned of(float x) { return __float_as_uint(x); }
+};
+template <> struct Bits<double> {
+  static __device__ __forceinline__ long long of(double x) { return __double_as_longlong(x); }
+};
+
+// True when slots i and j store the same position, bit for bit.
+template <typename T, int DIM>
+__device__ __forceinline__ bool same_pos(const T* __restrict__ pos, long long i, long long j) {
+  bool same = true;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d)
+    same = same && Bits<T>::of(pos[i * DIM + d]) == Bits<T>::of(pos[j * DIM + d]);
+  return same;
+}
+
+// flags[c] = 1 where cell c holds a slot of mass != 0; flags start at 0.
+// One thread per 16 bytes of mass, which lie in one cell as cap % 4 == 0.
+template <typename T>
+__global__ void __launch_bounds__(sph::kThreads)
+cell_flags(const T* __restrict__ mass, int* __restrict__ flags, long long S, int cap) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (v * kPer >= S) return;
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(mass) + v);
+  T x[kPer];
+  memcpy(x, &u, sizeof(u));
+  bool any = false;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) any = any || x[e] != T(0);
+  if (any) flags[static_cast<unsigned>(v) / static_cast<unsigned>(cap / kPer)] = 1;
+}
+
+// The first design, kept as the unmasked arm of other caps: one thread per slot.
 template <typename T, int DIM>
 __global__ void __launch_bounds__(sph::kThreads)
 density_every_slot(const T* __restrict__ pos, const T* __restrict__ mass,
@@ -93,7 +143,8 @@ struct RunSmem {
   sph::Rec<T>* rec;    // [W] packed (x, y, z, m) of the occupied window slots
   int* start;          // [R+3] first record of each window cell
   unsigned* wmask;     // [W/32] occupancy of the stage being packed
-  unsigned* hmask;     // [H/32] occupancy of the home slots
+  unsigned* hmask;     // [H/32] home slots that get a record
+  int* rep;            // [R] first empty slot of each run cell, -1 if full
   int* hidx;           // [H] home slot -> home record, -1 if empty
   int* hcell;          // [H] home record -> run cell
   sph::Rec<T>* hrec;   // [H] home (x, y, z, -)
@@ -109,6 +160,7 @@ struct RunSmem {
     start = c.take<int>(R + 3);
     wmask = c.take<unsigned>((W + 31) / 32);
     hmask = c.take<unsigned>((H + 31) / 32);
+    rep = c.take<int>(R);
     hidx = c.take<int>(H);
     hcell = c.take<int>(H);
     hrec = c.take<sph::Rec<T>>(H);
@@ -116,17 +168,34 @@ struct RunSmem {
   }
 };
 
-template <typename T, int DIM>
+// MASK: ``valid`` masks the result and ``flags`` is unused; otherwise
+// ``valid`` is unused and ``flags`` are cell_flags' over the S / cap cells.
+template <typename T, int DIM, bool MASK>
 __global__ void __launch_bounds__(sph::kRunThreads)
 density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
-             const bool* __restrict__ valid, const T* __restrict__ prm, T* __restrict__ rho,
+             const bool* __restrict__ valid, const int* __restrict__ flags,
+             const T* __restrict__ prm, T* __restrict__ rho,
              long long S, int cap, int R, long long s0, long long s1) {
   const long long c0 = static_cast<long long>(blockIdx.x) * R;
   const long long base = c0 * cap;  // first home slot
   const int H = static_cast<int>(S - base < static_cast<long long>(R) * cap
                                      ? S - base : static_cast<long long>(R) * cap);
   const T h2 = prm[0], c6 = prm[1], floor_rho = prm[2];
-  if (sph::warp_all_zero(mass + base, H)) {  // empty run: 0, floored
+  const int ns = DIM == 2 ? 3 : 9;
+  bool idle;  // nothing in the run can be non-zero; every warp finds it itself
+  if (MASK) {
+    idle = sph::warp_all_zero(mass + base, H);
+  } else {
+    const long long C = S / cap;
+    bool any = false;
+    for (int t = threadIdx.x & 31; t < ns * (R + 2); t += 32) {
+      const int s = t / (R + 2);
+      const long long c = c0 + sph::slab_shift<DIM>(s, s0, s1) - 1 + (t - s * (R + 2));
+      any = any || (c >= 0 && c < C && flags[c] != 0);
+    }
+    idle = !__any_sync(~0u, any);
+  }
+  if (idle) {  // 0, floored
     const T out = T(0) < floor_rho ? floor_rho : T(0);
     for (int i = threadIdx.x; i < H; i += blockDim.x) rho[base + i] = out;
     return;
@@ -135,8 +204,7 @@ density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
   sph::Carve carve(smem_raw);
   const RunSmem<T, DIM> sm(carve, R, cap);
   const int W = (R + 2) * cap, nchW = (W + 31) / 32, nchH = (H + 31) / 32;
-  const int warp = threadIdx.x >> 5;
-  const int ns = DIM == 2 ? 3 : 9;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
 
   auto stage = [&](int s) {  // one thread: bulk-copy slab s's window
     const int b = s & 1;
@@ -157,6 +225,36 @@ density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
   for (int i = threadIdx.x; i < H; i += blockDim.x) sm.hidx[i] = -1;
   sph::occupancy(mass + base, H, 0, H, sm.hmask);
   __syncthreads();
+  if (!MASK) {
+    // Also one per cell for its empty slots, at the cell's first empty slot,
+    // and one for each empty slot stored elsewhere than that one.
+    for (int ci = threadIdx.x; ci < H / cap; ci += blockDim.x) {
+      const int lo = ci * cap, hi = lo + cap;
+      int r = -1;
+      for (int k = lo >> 5; k <= (hi - 1) >> 5 && r < 0; ++k) {
+        unsigned z = ~sm.hmask[k];
+        if (k == lo >> 5) z &= ~0u << (lo & 31);
+        if (k == hi >> 5) z &= (1u << (hi & 31)) - 1u;
+        if (z) r = 32 * k + __ffs(z) - 1;
+      }
+      sm.rep[ci] = r;
+    }
+    __syncthreads();
+    for (int k = warp; k < nchH; k += nw) {
+      const int i = k * 32 + lane;
+      bool rec = false;
+      if (i < H) {
+        rec = (sm.hmask[k] >> lane) & 1u;
+        if (!rec) {
+          const int r = sm.rep[i / cap];
+          rec = i == r || !same_pos<T, DIM>(pos, base + i, base + r);
+        }
+      }
+      const unsigned bits = __ballot_sync(~0u, rec);
+      if (lane == 0) sm.hmask[k] = bits;
+    }
+    __syncthreads();
+  }
   const sph::ChunkScan hs = sph::scan_chunks(sm.hmask, nchH);
   const int nh = hs.total;
   sph::pack_occupied(sm.hmask, nchH, hs, [&](int i, int r) {
@@ -213,37 +311,56 @@ density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
   __syncthreads();
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     const int r = sm.hidx[i];
-    T acc = r >= 0 ? sm.hacc[r] : T(0);
-    if (!valid[base + i]) acc = T(0);
+    T acc;
+    if (MASK) {
+      acc = r >= 0 && valid[base + i] ? sm.hacc[r] : T(0);
+    } else {  // an empty slot without a record shares its cell's
+      acc = sm.hacc[r >= 0 ? r : sm.hidx[sm.rep[i / cap]]];
+    }
     rho[base + i] = acc < floor_rho ? floor_rho : acc;
   }
 }
 
-template <typename T, int DIM>
-cudaError_t go(const T* p, const T* m, const bool* v, const T* c, T* out, long long S,
-               int cap, long long s0, long long s1, int mask_valid, cudaStream_t st) {
-  if (!mask_valid) {
-    density_every_slot<T, DIM><<<sph::blocks_for(S), sph::kThreads, 0, st>>>(
-        p, m, c, out, S, cap, s0, s1);
-    return cudaGetLastError();
-  }
+template <typename T, int DIM, bool MASK>
+cudaError_t go_runs(const T* p, const T* m, const bool* v, const int* flags, const T* c, T* out,
+                    long long S, int cap, long long s0, long long s1, cudaStream_t st) {
   const int run = sph::run_cells(cap);
   sph::Carve carve(nullptr);  // counts the bytes of the layout
   const RunSmem<T, DIM> layout(carve, run, cap);
   (void)layout;
-  const auto kernel = density_runs<T, DIM>;
+  const auto kernel = density_runs<T, DIM, MASK>;
   const cudaError_t err = sph::allow_smem(kernel, carve.off);
   if (err != cudaSuccess) return err;
   const long long runs = (S / cap + run - 1) / run;
-  kernel<<<static_cast<unsigned>(runs), sph::kRunThreads, carve.off, st>>>(p, m, v, c, out, S,
-                                                                           cap, run, s0, s1);
+  kernel<<<static_cast<unsigned>(runs), sph::kRunThreads, carve.off, st>>>(
+      p, m, v, flags, c, out, S, cap, run, s0, s1);
   return cudaGetLastError();
+}
+
+// The unmasked density: the runs where they can stage the layout (then
+// ``flags``, S / cap ints of scratch, is written), else a thread per slot.
+template <typename T, int DIM>
+cudaError_t go_window(const T* p, const T* m, const T* c, int* flags, T* out, long long S,
+                      int cap, long long s0, long long s1, cudaStream_t st) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (!sph::run_cap_ok(cap) || !sph::aligned16(p) || !sph::aligned16(m) ||
+      S / kPer > 0xffffffffLL) {
+    density_every_slot<T, DIM><<<sph::blocks_for(S), sph::kThreads, 0, st>>>(
+        p, m, c, out, S, cap, s0, s1);
+    return cudaGetLastError();
+  }
+  cudaError_t err = cudaMemsetAsync(flags, 0, static_cast<size_t>(S / cap) * sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  cell_flags<T><<<sph::blocks_for(S / kPer), sph::kThreads, 0, st>>>(m, flags, S, cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return go_runs<T, DIM, false>(p, m, nullptr, flags, c, out, S, cap, s0, s1, st);
 }
 
 template <typename T>
 int launch(const void* pos, const void* mass, const void* valid, const void* prm,
            void* rho, long long S, int cap, int dim, long long s0, long long s1,
-           int mask_valid, void* stream) {
+           void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto p = static_cast<const T*>(pos);
   const auto m = static_cast<const T*>(mass);
@@ -251,9 +368,9 @@ int launch(const void* pos, const void* mass, const void* valid, const void* prm
   const auto c = static_cast<const T*>(prm);
   const auto out = static_cast<T*>(rho);
   if (S == 0) return cudaGetLastError();
-  if (mask_valid && !sph::run_cap_ok(cap)) return cudaErrorInvalidValue;
-  if (dim == 2) return go<T, 2>(p, m, v, c, out, S, cap, s0, s1, mask_valid, st);
-  if (dim == 3) return go<T, 3>(p, m, v, c, out, S, cap, s0, s1, mask_valid, st);
+  if (!sph::run_cap_ok(cap)) return cudaErrorInvalidValue;
+  if (dim == 2) return go_runs<T, 2, true>(p, m, v, nullptr, c, out, S, cap, s0, s1, st);
+  if (dim == 3) return go_runs<T, 3, true>(p, m, v, nullptr, c, out, S, cap, s0, s1, st);
   return cudaErrorInvalidValue;
 }
 
@@ -261,14 +378,27 @@ int launch(const void* pos, const void* mass, const void* valid, const void* prm
 
 extern "C" int sph_density_f32(const void* pos, const void* mass, const void* valid,
                                const void* prm, void* rho, long long S, int cap,
-                               int dim, long long s0, long long s1, int mask_valid,
-                               void* stream) {
-  return launch<float>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, mask_valid, stream);
+                               int dim, long long s0, long long s1, void* stream) {
+  return launch<float>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, stream);
 }
 
 extern "C" int sph_density_f64(const void* pos, const void* mass, const void* valid,
                                const void* prm, void* rho, long long S, int cap,
-                               int dim, long long s0, long long s1, int mask_valid,
-                               void* stream) {
-  return launch<double>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, mask_valid, stream);
+                               int dim, long long s0, long long s1, void* stream) {
+  return launch<double>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, stream);
+}
+
+extern "C" int sph_density_window_f32(const void* pos, const void* mass, const void* prm,
+                                      void* flags, void* rho, long long S, int cap, int dim,
+                                      long long s0, long long s1, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto p = static_cast<const float*>(pos), m = static_cast<const float*>(mass);
+  const auto c = static_cast<const float*>(prm);
+  const auto f = static_cast<int*>(flags);
+  const auto out = static_cast<float*>(rho);
+  if (S == 0) return cudaGetLastError();
+  if (cap <= 0) return cudaErrorInvalidValue;
+  if (dim == 2) return go_window<float, 2>(p, m, c, f, out, S, cap, s0, s1, st);
+  if (dim == 3) return go_window<float, 3>(p, m, c, f, out, S, cap, s0, s1, st);
+  return cudaErrorInvalidValue;
 }

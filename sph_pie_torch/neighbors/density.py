@@ -71,7 +71,7 @@ def density(
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(
         "density", dt, b.pos, b.mass, b.valid, prm, rho, S, grid.cap,
-        grid.dim, s0, s1, 1,
+        grid.dim, s0, s1,
     )
     density.launches += 1
     return rho

@@ -10,18 +10,23 @@ over the 3^(dim-1) slab windows of slot i's cell, then floored at
     ``where(valid, rho, 0)`` before the floor;
   * ``neighbors/pallas_density.py:91`` ``density_pallas`` →
     ``density_window``: any cap, h = ``params.h``, and NO valid mask: an
-    empty slot sits at pos 0 and keeps the density its window gives the
-    origin, then is floored.
+    empty slot keeps the density its windows give its stored position (0
+    where the placement left it), then is floored.
 
 Mind the support radius: ``density_cap32`` takes h from the grid geometry
 while ``density`` (the main path) and ``density_window`` take ``params.h``;
 the two agree only up to rounding. Both compute in float32, as the TPU
 kernels do, and raise on any other dtype.
 
-Each wrapper launches the main path's density kernel (``csrc/density.cu``),
-with its valid mask on for ``density_cap32`` and off for ``density_window``,
-for CUDA tensors, and runs its ``*_plain`` twin (the blocked slab fold) for
-CPU tensors; any other device raises.
+For CUDA tensors each wrapper launches the main path's density kernel over
+runs of cells (``csrc/density.cu``, ``neighbors/runs.py``), ``density_cap32``
+with its valid mask on, ``density_window`` with the mask off: every occupied
+slot, and the empty slots of a cell through one shared home record per
+stored position. That arm of ``density_window`` takes what the runs can
+stage (``runs.stageable``: a cap that is a multiple of 4 up to 384, pos and
+mass starting on 16-byte boundaries); the kernel's launcher gives any other
+layout to the one-thread-per-slot arm. For CPU tensors a wrapper runs its
+``*_plain`` twin (the blocked slab fold); any other device raises.
 """
 
 from __future__ import annotations
@@ -93,21 +98,11 @@ def density_window_plain(
     return torch.maximum(_fold(grid, b, prm, every_slot=True), prm[2])
 
 
-def _launch(name: str, grid: nb.BinnedGrid, b: nb.BinnedState, prm, mask_valid: bool):
-    dt, dev = b.pos.dtype, b.pos.device
+def _check_cuda(name: str, b: nb.BinnedState, prm: torch.Tensor) -> None:
     _native.check_cuda(
-        name, dt, dev, pos=(b.pos, None), mass=(b.mass, None),
+        name, b.pos.dtype, b.pos.device, pos=(b.pos, None), mass=(b.mass, None),
         valid=(b.valid, torch.bool), prm=(prm, None),
     )
-    if mask_valid:  # the unmasked arm gives a thread to every slot: no runs
-        runs.check_staging(name, grid.cap, pos=b.pos, mass=b.mass)
-    rho = torch.empty(grid.num_slots, dtype=dt, device=dev)
-    s0, s1 = (grid.strides + (0,))[:2]
-    _native.launch(
-        "density", dt, b.pos, b.mass, b.valid, prm, rho, grid.num_slots,
-        grid.cap, grid.dim, s0, s1, int(mask_valid),
-    )
-    return rho
 
 
 def density_cap32(
@@ -119,7 +114,15 @@ def density_cap32(
     if b.pos.device.type != "cuda":
         raise ValueError(f"density_cap32: no kernel for device {b.pos.device}")
     _check("density_cap32", grid, b, cap32=True)
-    rho = _launch("density_cap32", grid, b, _cap32_consts(params, grid, b), mask_valid=True)
+    prm = _cap32_consts(params, grid, b)
+    _check_cuda("density_cap32", b, prm)
+    runs.check_staging("density_cap32", grid.cap, pos=b.pos, mass=b.mass)
+    rho = torch.empty_like(b.mass)
+    s0, s1 = (grid.strides + (0,))[:2]
+    _native.launch(
+        "density", b.pos.dtype, b.pos, b.mass, b.valid, prm, rho, grid.num_slots,
+        grid.cap, grid.dim, s0, s1,
+    )
     density_cap32.launches += 1
     return rho
 
@@ -127,13 +130,23 @@ def density_cap32(
 def density_window(
     params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
 ) -> torch.Tensor:
-    """``density_window_plain`` on the CPU; ``density.cu``, unmasked, on the card."""
+    """``density_window_plain`` on the CPU; ``density.cu``, unmasked, on the
+    card: over runs of cells where ``runs.stageable``, else a thread per slot."""
     if b.pos.device.type == "cpu":
         return density_window_plain(params, grid, b)
     if b.pos.device.type != "cuda":
         raise ValueError(f"density_window: no kernel for device {b.pos.device}")
     _check("density_window", grid, b, cap32=False)
-    rho = _launch("density_window", grid, b, _window_consts(params, b), mask_valid=False)
+    prm = _window_consts(params, b)
+    _check_cuda("density_window", b, prm)
+    rho = torch.empty_like(b.mass)
+    # scratch of the runs arm: which cells hold mass
+    flags = torch.empty(grid.num_cells, dtype=torch.int32, device=b.pos.device)
+    s0, s1 = (grid.strides + (0,))[:2]
+    _native.launch(
+        "density_window", b.pos.dtype, b.pos, b.mass, prm, flags, rho, grid.num_slots,
+        grid.cap, grid.dim, s0, s1,
+    )
     density_window.launches += 1
     return rho
 

@@ -9,7 +9,13 @@ with more than ``cap`` rows keeps its first ``cap``, with no limit on how
 many cells overflow.
 
 ``expand`` launches the CUDA kernel (``csrc/expand.cu``) for CUDA tensors
-and runs ``expand_plain`` for CPU tensors; any other device raises.
+and runs ``expand_plain`` for CPU tensors; any other device raises. The
+kernel has two arms, chosen in its launcher by shape and alignment
+(``runs.expand_run_cells`` is the same rule): runs of cells whose rows and
+owners leave through 16-byte stores, for a cap that is a multiple of 4 (caps
+8, 32, 40: every cap the scenes are made with) in either dtype, and one
+thread per slot for any other cap. The inputs may start on any element
+boundary in both arms; the outputs are allocated here and start aligned.
 """
 
 from __future__ import annotations
@@ -26,13 +32,17 @@ def expand_plain(
     owner: torch.Tensor,
     cap: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[K, NCOL] sorted rows -> ([C*cap, NCOL] dense rows, [C*cap] owner)."""
+    """[K, NCOL] sorted rows -> ([C*cap, NCOL] dense rows, [C*cap] owner).
+
+    An empty slot, and a slot whose row ``first[c] + r`` does not exist
+    (>= K), reads a row of zeros with owner -1 appended behind the K rows."""
+    k = rows.shape[0]
     rank = torch.arange(cap, dtype=torch.int64, device=rows.device)
-    keep = rank[None, :] < torch.clamp(count.to(torch.int64), max=cap)[:, None]
-    src = torch.where(keep, first.to(torch.int64)[:, None] + rank[None, :], 0)
-    keep, src = keep.reshape(-1), src.reshape(-1)
-    dense = torch.where(keep[:, None], rows[src], 0.0)
-    return dense, torch.where(keep, owner[src], -1)
+    src = first.to(torch.int64)[:, None] + rank[None, :]
+    keep = (rank[None, :] < torch.clamp(count.to(torch.int64), max=cap)[:, None]) & (src < k)
+    src = torch.where(keep, src, k).reshape(-1)
+    dense = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])[src]
+    return dense, torch.cat([owner, owner.new_full((1,), -1)])[src]
 
 
 def expand(

@@ -7,9 +7,13 @@
   * ``density_window_plain`` against ``pallas_density.density_pallas``
     (interpret mode) on the scenes of ``tests/test_pallas_density.py`` at bin
     time, on ALL slots: that kernel has no valid mask, so empty slots at
-    pos 0 keep the density their window gives the origin. rtol 3e-6.
+    pos 0 keep the density their window gives the origin. rtol 3e-6. Also
+    with some empty slots moved to positions of their own inside the fluid:
+    an empty slot keeps the density of wherever it is stored, which is the
+    rule the CUDA kernel's shared home records must respect.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +28,7 @@ from sph_pie_torch.neighbors.density_window import (
 from sph_pie_tpu.neighbors import pallas_density, pallas_pair
 from sph_pie_tpu.scenes import builders as jb
 from sph_pie_tpu.solvers import wcsph_binned as jw
+from sph_pie_tpu.utils import struct
 
 RTOL = 3e-6
 CAP32 = {"2d": ("dam_break_2d", 700, {}), "3d": ("dam_break_3d", 1500, {"skin_frac": 0.25})}
@@ -67,6 +72,35 @@ def test_density_window_plain_matches_pallas_density_on_every_slot(window):
     floor = 1e-6 * float(params.rest_density)
     # the unmasked rule is exercised: some empty slots sit above the floor
     assert (want[~b.valid.numpy()] > 1.5 * floor).any()
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dim", sorted(WINDOW))
+def test_density_window_plain_matches_pallas_density_with_moved_empty_slots(dim):
+    make, n = WINDOW[dim]
+    scene = getattr(jb, make)(n)
+    b = scene.binned_state()
+    cap, d = scene.bgrid.cap, scene.bgrid.dim
+    pos, mass = np.array(b.pos), np.asarray(b.mass)
+    occ = (mass.reshape(-1, cap) != 0).sum(1)
+    cells = np.flatnonzero((occ > 0) & (occ < cap - 2))[::3]
+    real, empty = cells * cap, cells * cap + occ[cells]
+    assert len(cells) > 10 and not mass[empty].any() and mass[real].all()
+    rng = np.random.default_rng(2)
+    h = float(scene.params.h)
+    # distinct positions within h of a particle of the cell; one shared by two
+    # empty slots of a cell; one that is a particle's own position
+    pos[empty] = pos[real] + rng.uniform(-0.4, 0.4, (len(cells), d)).astype(np.float32) * h
+    pos[empty + 1] = pos[empty]
+    pos[empty + 2] = pos[real]
+    b = struct.replace(b, pos=jnp.asarray(pos))
+    want = np.asarray(pallas_density.density_pallas(scene.params, scene.bgrid, b, interpret=True))
+    params, grid, tb = port_inputs(scene, b)
+    got = density_window_plain(params, grid, tb).numpy()
+    floor = 1e-6 * float(params.rest_density)
+    moved = np.concatenate([empty, empty + 1, empty + 2])
+    assert (want[moved] > 100 * floor).all()
+    np.testing.assert_array_equal(got[empty], got[empty + 1])
     np.testing.assert_allclose(got, want, rtol=RTOL)
 
 

@@ -50,6 +50,16 @@ def test_run_cells_reject_what_the_bulk_copies_cannot_take(cap):
         runs.check_staging("k", cap)
 
 
+@pytest.mark.parametrize("cap,ok", [(8, True), (32, True), (384, True), (30, False), (388, False)])
+def test_stageable_is_the_rule_check_staging_raises_on(cap, ok):
+    t = torch.zeros(64)
+    assert runs.stageable(cap, t, t[4:]) is ok
+    assert not runs.stageable(cap, t, t[1:])
+    if not ok:
+        with pytest.raises(ValueError):
+            runs.check_staging("k", cap, pos=t)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("field", ["pos", "mass"])
 def test_check_staging_rejects_an_unaligned_start(field, dtype):
@@ -61,7 +71,10 @@ def test_check_staging_rejects_an_unaligned_start(field, dtype):
         runs.check_staging("k", 40, **bad)
 
 
-@pytest.mark.parametrize("name,const", [("RUN_CELLS", "kRunCells"), ("HOME_SLOTS", "kHomeSlots")])
+@pytest.mark.parametrize("name,const", [
+    ("RUN_CELLS", "kRunCells"), ("HOME_SLOTS", "kHomeSlots"),
+    ("EXPAND_SLOTS", "kExpandSlots"), ("EXPAND_BYTES", "kExpandBytes"),
+])
 def test_run_constants_are_the_kernels(name, const):
     src = (Path(runs.__file__).parents[1] / "csrc" / "common.cuh").read_text()
     m = re.search(rf"constexpr int {const} = (\d+);", src)
