@@ -15,7 +15,7 @@ Density and forces are also checked where their staged windows pass slot
 the last interior cell, in float32 and float64), in float64 on the 2D
 scene, and on the full cap-8 cells of the overfull scene. ``expand`` is
 also held bit for bit against its plain version on ragged inputs made from a
-seed (4 to 8 columns, caps 8, 32 and 40 through its 16-byte arm and cap 5
+seed (3 to 8 columns, caps 8, 32 and 40 through its 16-byte arm and cap 5
 through its per-slot arm, both dtypes, more overfull cells than the
 reference kernel's slack absorbs, rows that would pass K, K = 0, inputs
 that start off a 16-byte boundary).
@@ -54,6 +54,20 @@ and compact at K = 32 and at K = 4, which truncates there). Each output is
 then checked against its plain version (and ``density_cap32`` and the
 float32 ``forces_mma`` against the main path's ``density`` and
 ``forces``), and each kernel is timed against its plain version.
+
+Phase D drives the PBF solver and the frame renderer. D1 is BASELINE
+config #4 as ``bench.py``'s ``pbf_3d_1m_render`` row runs it:
+``dam_break_3d(1M)`` under ``flagship_params()`` (the "ride" epilogue), a
+``render_binned_u8`` frame after every step whose sum is consumed on the
+device, with the ``expand`` and ``density`` launch counters reset just
+before and read just after; it prints ms/step, particle-steps/s, rebins and
+checks, host syncs, peak memory, and then the time of each fold and of one
+frame on the final state. D2 runs ``dam_break_3d(20k)`` for 5 PBF steps on
+the card and on the CPU under the flagship, the "gather" epilogue,
+vorticity confinement (whose final density is the ``density`` kernel) and
+a scene without XSPH, and holds card against CPU, ride against gather, and
+the card's frames (``splat``, ``splat_binned`` and their uint8 forms)
+against the CPU's.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. On success
@@ -100,6 +114,17 @@ C_STEPS = 5           # C1: steps before the kernels run (micro_mxu_vmem.py)
 SLAB_K = 32           # compact K at 1M (micro_compact.py's default)
 SLAB_K_CUT = 4        # a compact K that truncates at 1M, so the first-K rule
                       # is checked there too (K = 32 truncates nothing there)
+PBF_TRAJ_ATOL = 1e-5  # D2: f32 max |dpos| after 5 PBF steps, card vs CPU (the
+                      # folds sum in another order on each), domain ~1 m
+RIDE_GATHER_ATOL = 1e-6  # D2: the two epilogues on the card (tests/test_pbf.py)
+FRAME_ATOL = 1e-5     # D2: float frames card vs CPU, scale-normalised: the
+                      # card's splat adds by atomics, in no fixed order
+U8_SHARE = 1e-3       # D2: u8 frames card vs CPU: at most one count apart, on at
+                      # most this share of the pixels (a float 1 ulp apart can
+                      # cross a truncation step)
+D_WARM, D_STEPS, D_REPS = 1, 2, 3  # D1: PBF steps before timing; timed steps x reps
+D2_STEPS = 5          # D2: PBF steps on the card and on the CPU
+FRAME = dict(resolution=(256, 256), axis=1, gain=50.0)  # bench.py's in-loop frame
 
 # The least time of a kernel's work (bound_ms): the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
@@ -311,9 +336,7 @@ def compare_kernels(params, grid, b, rtol=DENSITY_RTOL, atol=FORCES_ATOL, with_e
     bound. Returns ({name: max abs error}, {name: plain ms} of density and
     forces, ``b`` with density and pressure from the density kernel)."""
     from sph_pie_torch.kernels import eos
-    from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.neighbors.density import density, density_plain
-    from sph_pie_torch.neighbors.expand import expand, expand_plain
     from sph_pie_torch.neighbors.forces import forces, forces_plain
     from sph_pie_torch.utils.struct import replace
 
@@ -336,16 +359,31 @@ def compare_kernels(params, grid, b, rtol=DENSITY_RTOL, atol=FORCES_ATOL, with_e
     if not with_expand:
         return out, plain, b
 
-    pos, vel, mass, alive = nb._compact(grid, b)
+    out["expand"] = expand_equal(grid, rebin_rows(grid, b), "")
+    return out, plain, b
+
+
+def rebin_rows(grid, b, light: bool = False, carry_density: bool = False):
+    """The sorted rows that ``rebin(grid, b, light, carry_density)`` places."""
+    from sph_pie_torch.neighbors import binned as nb
+
+    pos, vel, mass, alive, dens = nb._compact(grid, b, light, carry_density)
     owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
-    srt = nb.sort_rows(grid, pos, vel, mass, owner, alive)
+    return nb.sort_rows(grid, pos, vel, mass, owner, alive, density=dens)
+
+
+def expand_equal(grid, srt, label: str) -> float:
+    """``expand`` against ``expand_plain`` on sorted rows, bit for bit;
+    returns the max abs difference (0)."""
+    from sph_pie_torch.neighbors.expand import expand, expand_plain
+
     args = (srt.first, srt.count, srt.rows, srt.owner, grid.cap)
     (dk, ok_), (dp, op) = expand(*args), expand_plain(*args)
     same = torch.equal(dk, dp) and torch.equal(ok_, op)
-    out["expand"] = (dk - dp).abs().max().item()
-    print(f"  expand   equal to plain: {same} (bound: exact)")
-    check(same, "expand kernel disagrees")
-    return out, plain, b
+    print(f"  expand{label} {srt.rows.shape[0]} rows x {srt.rows.shape[1]} columns into "
+          f"{dk.shape[0]} slots, equal to plain: {same} (bound: exact)")
+    check(same, f"expand kernel disagrees{label}")
+    return (dk - dp).abs().max().item()
 
 
 def phase_a() -> None:
@@ -447,7 +485,7 @@ def expand_cases() -> None:
     for cap in (8, 32, 40, 5):
         for dt in (torch.float32, torch.float64):
             n, most = 0, 0
-            for ncol in (5, 6, 7, 8):
+            for ncol in (3, 4, 5, 6, 7, 8):
                 for cut in ("none", "past K", "K == 0", "unaligned"):
                     args, dropped = ragged_rows(rng, C, cap, ncol, dt, cut)
                     (dk, ok_), (dp, op) = expand(*args, cap), expand_plain(*args, cap)
@@ -474,7 +512,7 @@ def rebinned(grid, b, cap: int):
     from sph_pie_torch.neighbors import binned as nb
 
     g = dataclasses.replace(grid, cap=cap)
-    pos, vel, mass, alive = nb._compact(grid, b)
+    pos, vel, mass, alive, _ = nb._compact(grid, b)
     owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
     return g, nb._bin_rows(g, pos, vel, mass, owner, alive)
 
@@ -954,7 +992,6 @@ def phase_c(main_path) -> list[dict]:
 
 
 def phase_b() -> tuple[list[dict], tuple]:
-    from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.neighbors import runs
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.expand import expand, expand_plain
@@ -1017,9 +1054,7 @@ def phase_b() -> tuple[list[dict], tuple]:
 
     print(" kernels against their plain versions on the final state:")
     errs, plain, b = compare_kernels(s.params, g, b)
-    pos_c, vel_c, mass_c, alive = nb._compact(g, b)
-    owner = torch.arange(pos_c.shape[0], dtype=torch.int32, device="cuda")
-    srt = nb.sort_rows(g, pos_c, vel_c, mass_c, owner, alive)
+    srt = rebin_rows(g, b)
     ex_args = (srt.first, srt.count, srt.rows, srt.owner, g.cap)
     timings = {
         "density": (cuda_ms(lambda: density(s.params, g, b), 10), plain["density"]),
@@ -1050,6 +1085,199 @@ def phase_b() -> tuple[list[dict], tuple]:
     return rows, (s.params, g, b)
 
 
+def pbf_roll(params, grid, pp, b, steps: int, checksum):
+    """``steps`` PBF steps, each followed by the in-loop frame of bench.py's
+    ``pbf_3d_1m_render`` row, whose sum is added to ``checksum`` on the
+    device (the frame is consumed, and no step waits for it)."""
+    from sph_pie_torch.render import splat
+    from sph_pie_torch.solvers import pbf
+
+    for _ in range(steps):
+        b = pbf.step(params, grid, pp, b)
+        checksum = checksum + splat.render_binned_u8(grid, b, **FRAME).sum(dtype=torch.int64)
+    return b, checksum
+
+
+def fold_inputs(params, grid, pp, b):
+    """The three fold calls of a flagship step under ``pp``, on state ``b``."""
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.solvers import pbf
+
+    fields = {**nb._planar("p", b.pos), "mass": b.mass}
+    lam, _ = pbf._lambda_fold(params, pp, grid, fields)
+    m_rho = b.mass / torch.where(b.density > 0, b.density, params.rest_density)
+    return {
+        "lambda": lambda: pbf._lambda_fold(params, pp, grid, fields),
+        "dx": lambda: pbf._dx_fold(params, pp, grid, {**fields, "lam": lam}),
+        "density+XSPH": lambda: pbf._density_xsph_fold(params, grid, b.pos, b.vel, b.mass, m_rho),
+    }
+
+
+def phase_d1() -> None:
+    from sph_pie_torch.neighbors.density import density
+    from sph_pie_torch.neighbors.expand import expand
+    from sph_pie_torch.render import splat
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.solvers import pbf
+
+    print("== Phase D1: PBF flagship (ride), dam_break_3d(1_000_000), a frame every step")
+    t0 = time.perf_counter()
+    s = dam_break_3d(1_000_000, device="cuda")
+    p, g, pp = s.params, s.bgrid, pbf.flagship_params()
+    n = int(s.state.n_active())
+    print(f" particles {n}, cap {g.cap}, skin {g.skin / float(p.h):.2f} h, iters {pp.iters}, "
+          f"sor {float(pp.sor):g}, epilogue {pp.epilogue}, xsph {p.use_xsph}; frame "
+          f"{FRAME['resolution']} axis {FRAME['axis']} gain {FRAME['gain']}; scene built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(n == 995_328, "flagship particle count")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs: list[int] = []
+    walls = []
+    expand.launches = density.launches = 0
+    # ---- the PBF path: counts start at 0 here ----
+    b = s.binned_state()
+    b, checksum = pbf_roll(p, g, pp, b, D_WARM, b.n_rebins.new_zeros((), dtype=torch.int64))
+    torch.cuda.synchronize()
+    rebins0 = int(b.n_rebins)
+    for _ in range(D_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting_syncs(syncs):
+            b, checksum = pbf_roll(p, g, pp, b, D_STEPS, checksum)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / D_STEPS)
+    launches = {"expand": expand.launches, "density": density.launches}
+    # ---- counts read here ----
+    peak = torch.cuda.max_memory_allocated()
+    run, timed_steps = D_WARM + D_STEPS * D_REPS, D_STEPS * D_REPS
+    ms = statistics.median(walls)
+    rebins = int(b.n_rebins)
+    print(f" ms/step median {ms:.1f} over {D_REPS} reps of {D_STEPS} steps after {D_WARM} warm "
+          f"(reps {', '.join(f'{w:.1f}' for w in walls)}), frame included")
+    print(f" particle-steps/s {n / (ms / 1e3):.4e}")
+    print(f" rebins fired {rebins} in {run} steps ({rebins - rebins0} in the timed steps) of "
+          f"{(pp.iters + 2) * run} checks ({pp.iters + 2} a step); overflow {int(b.overflow)}")
+    print(f" host syncs in timed steps {sum(syncs)} ({sum(syncs) / timed_steps:.2f}/step)")
+    print(f" launches over {run} steps: {launches} (expand: bin_state + one per rebin)")
+    print(f" peak device memory {peak / 2**30:.3f} GiB")
+
+    frame = splat.render_binned_u8(g, b, **FRAME)
+    lit = int((frame > 0).sum())
+    print(f" frames' checksum {int(checksum)}; last frame {tuple(frame.shape)}, {lit} pixels lit")
+    h = float(p.h)
+    lo, hi = p.bound_min - 5 * h, p.bound_max + 5 * h
+    pos = b.pos[b.valid]
+    check(bool(torch.isfinite(b.pos).all()), "PBF: non-finite position")
+    check(bool(((pos >= lo) & (pos <= hi)).all()), "PBF: position outside the box +- 5h")
+    check(int(b.overflow) == 0, "PBF: overflow at 1M")
+    check(launches["expand"] == 1 + rebins, f"expand launches {launches} != 1 + rebins {rebins}")
+    check(launches["density"] == 0, "the flagship step launches no density kernel")
+    check(lit > 0 and int(checksum) > 0, "the frames are dark")
+
+    # expand at the row widths of PBF's rebins at 1M: ride (pos | vel |
+    # density | mass) and light (pos | mass), from the final state.
+    for light, carry in ((False, True), (True, False)):
+        srt = rebin_rows(g, b, light, carry)
+        expand_equal(g, srt, " (light)" if light else " (ride)")
+        check(srt.rows.shape[1] == (4 if light else 8), "PBF rebin row width")
+
+    # Each fold once on the final state, then the frame, by CUDA events.
+    folds = {name: timed(fn)[1] for name, fn in fold_inputs(p, g, pp, b).items()}
+    frame_ms = cuda_ms(lambda: splat.render_binned_u8(g, b, **FRAME), 10)
+    print(" fold ms on the final state: " + ", ".join(f"{k} {v:.1f}" for k, v in folds.items())
+          + f"; frame {frame_ms:.3f} ms")
+    print(f" occupied cells {int((b.mass.reshape(g.num_cells, g.cap) != 0).any(1).sum())} of "
+          f"{g.num_cells}")
+
+
+def pbf_cases(device: str, n: int) -> dict:
+    """{name: (scene, final state)} of ``D2_STEPS`` PBF steps on
+    ``dam_break_3d(n)`` float32 under the four checked configurations."""
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.solvers import pbf
+
+    configs = {
+        "flagship": ({}, pbf.flagship_params(device=device)),
+        "gather": ({}, pbf.flagship_params(epilogue="gather", device=device)),
+        "vorticity": ({}, pbf.make_pbf_params(iters=2, vort_eps=5.0, device=device)),
+        "no xsph": ({"xsph_eps": 0.0}, pbf.flagship_params(device=device)),
+    }
+    out = {}
+    for name, (kw, pp) in configs.items():
+        s = dam_break_3d(n, device=device, **kw)
+        b = pbf.simulate(s.params, s.bgrid, pp, s.binned_state(), D2_STEPS)
+        out[name] = (s, b)
+    return out
+
+
+def phase_d2() -> None:
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.neighbors.density import density
+    from sph_pie_torch.render import splat
+
+    n = 20_000
+    print(f"== Phase D2: PBF and the frames, card against CPU, dam_break_3d({n}) float32, "
+          f"{D2_STEPS} steps")
+    density.launches = 0
+    card = pbf_cases("cuda", n)
+    torch.cuda.synchronize()
+    check(density.launches == 2 * D2_STEPS, f"density launches {density.launches}")
+    t0 = time.perf_counter()
+    cpu = pbf_cases("cpu", n)
+    print(f" CPU runs {time.perf_counter() - t0:.1f} s; density kernel launches on the card "
+          f"{density.launches} (vorticity and no xsph: one a step each)")
+    for name, (s, b) in card.items():
+        sc, bc = cpu[name]
+        cap = s.state.capacity
+        u, uc = nb.unbin(s.bgrid, b, cap), nb.unbin(sc.bgrid, bc, cap)
+        err = (u.pos.cpu() - uc.pos).abs().max().item()
+        verr = scaled(u.vel.cpu(), uc.vel)
+        print(f"  {name:9s} max |dpos| {err:.3e} (bound {PBF_TRAJ_ATOL:g}), vel scaled "
+              f"{verr:.3e} (printed only); rebins card {int(b.n_rebins)} CPU {int(bc.n_rebins)}; "
+              f"overflow {int(b.overflow)}")
+        check(err <= PBF_TRAJ_ATOL, f"PBF {name}: card differs from the CPU")
+        check(int(b.n_rebins) == int(bc.n_rebins) and int(b.overflow) == 0,
+              f"PBF {name}: rebins or overflow")
+    (s, b), (_, bg) = card["flagship"], card["gather"]
+    cap = s.state.capacity
+    ur, ug = nb.unbin(s.bgrid, b, cap), nb.unbin(s.bgrid, bg, cap)
+    rg = max((getattr(ur, k) - getattr(ug, k)).abs().max().item() for k in ("pos", "vel"))
+    print(f"  ride vs gather on the card: max |d| pos, vel {rg:.3e} (bound {RIDE_GATHER_ATOL:g}); "
+          f"rebins {int(b.n_rebins)}")
+    check(rg <= RIDE_GATHER_ATOL, "ride and gather differ on the card")
+
+    # The frames of the flagship state: the card's against the CPU's.
+    g, st = s.bgrid, nb.unbin(s.bgrid, b, cap)
+    bc = type(b)(**{k: t.cpu() for k, t in vars(b).items()})
+    stc = type(st)(**{k: t.cpu() for k, t in vars(st).items()})
+    m = float(st.mass.max())
+    ext = ((0.0, 1.0), (0.0, 0.75))
+    pairs = {
+        "splat": (splat.splat(st.pos, st.mass, st.active, ext, (256, 256), 1),
+                  splat.splat(stc.pos, stc.mass, stc.active, ext, (256, 256), 1)),
+        "splat_binned": (splat.splat_binned(g, b, (256, 256), 1),
+                         splat.splat_binned(g, bc, (256, 256), 1)),
+    }
+    for name, (got, want) in pairs.items():
+        e = scaled(got.cpu(), want)
+        print(f"  {name:14s} card vs CPU scaled err {e:.3e} (bound {FRAME_ATOL:g})")
+        check(e <= FRAME_ATOL, f"{name}: card differs from the CPU")
+    u8 = {
+        "render_u8": (splat.render_u8(st.pos, st.mass, st.active, ext, (256, 256), 1, 1.0 / m),
+                      splat.render_u8(stc.pos, stc.mass, stc.active, ext, (256, 256), 1, 1.0 / m)),
+        "render_binned_u8": (splat.render_binned_u8(g, b, **FRAME),
+                             splat.render_binned_u8(g, bc, **FRAME)),
+    }
+    for name, (got, want) in u8.items():
+        d = (got.cpu().int() - want.int()).abs()
+        share = (d > 0).float().mean().item()
+        print(f"  {name:16s} card vs CPU: max {int(d.max())} count, {share:.2e} of pixels differ "
+              f"(bound 1 count on {U8_SHARE:g}); {int((want > 0).sum())} lit")
+        check(int(d.max()) <= 1 and share <= U8_SHARE, f"{name}: card differs from the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1076,6 +1304,11 @@ def main() -> int:
         t0 = time.perf_counter()
         rows += phase_c(main_path)
         seconds["C"] = time.perf_counter() - t0
+        del main_path
+        for name, phase in (("D1", phase_d1), ("D2", phase_d2)):
+            t0 = time.perf_counter()
+            phase()
+            seconds[name] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

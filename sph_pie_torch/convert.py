@@ -18,6 +18,7 @@ import torch
 from sph_pie_torch.core.params import ARRAY_FIELDS, FluidParams
 from sph_pie_torch.core.state import ParticleState
 from sph_pie_torch.neighbors.binned import BinnedGrid, BinnedState
+from sph_pie_torch.solvers import pbf
 
 _GRID_FIELDS = tuple(f.name for f in dataclasses.fields(BinnedGrid))
 
@@ -37,6 +38,17 @@ def fluid_params(
         use_xsph=bool(fields["use_xsph"]),
         use_cohesion=bool(fields["use_cohesion"]),
         **{k: _tensor(fields[k], device) for k in ARRAY_FIELDS},
+    )
+
+
+def pbf_params(fields: Mapping[str, Any], *, device: torch.device | str) -> pbf.PbfParams:
+    """PbfParams from its array fields plus its four static values."""
+    return pbf.PbfParams(
+        iters=int(fields["iters"]),
+        epilogue=str(fields["epilogue"]),
+        use_vorticity=bool(fields["use_vorticity"]),
+        s_corr_n=int(fields["s_corr_n"]),
+        **{k: _tensor(fields[k], device) for k in pbf.ARRAY_FIELDS},
     )
 
 

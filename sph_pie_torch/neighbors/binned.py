@@ -44,7 +44,7 @@ class BinnedGrid:
     cell_size: float           # >= support radius h + skin
     cap: int                   # particle slots per cell
     skin: float                # Verlet skin absorbed into cell_size
-    block_cells: int = 0       # cells per plain-fold block (0 = whole grid)
+    block_cells: int = 0       # home cells per plain-fold chunk (0 = all)
     max_particles: int = 0     # compact particle capacity (for O(N) rebin)
     axis_order: tuple[int, ...] = ()  # grid axis g -> spatial axis
     n_boundary: int = 0        # trailing compact rows that are frozen
@@ -187,7 +187,7 @@ def _cell_ids(grid: BinnedGrid, pos: torch.Tensor, valid: torch.Tensor):
 class SortedRows:
     """K compact rows sorted by cell id: the placement step's inputs."""
 
-    rows: torch.Tensor   # [K, NCOL] pos | vel | density (optional) | mass
+    rows: torch.Tensor   # [K, NCOL] pos | vel (optional) | density (optional) | mass
     owner: torch.Tensor  # [K] int32 owner of each sorted row
     slot: torch.Tensor   # [K] int64 slot of each sorted row; S if dropped
     first: torch.Tensor  # [C] int32 index of each cell's first sorted row
@@ -198,7 +198,7 @@ class SortedRows:
 def sort_rows(
     grid: BinnedGrid,
     pos: torch.Tensor,
-    vel: torch.Tensor,
+    vel: torch.Tensor | None,
     mass: torch.Tensor,
     owner: torch.Tensor,
     valid: torch.Tensor,
@@ -209,12 +209,14 @@ def sort_rows(
 
     The sort is stable, so within a cell rows keep their input order and an
     overfull cell drops its highest-ranked rows, exactly as the reference's
-    stable multi-operand sort does."""
+    stable multi-operand sort does. A ``vel`` or ``density`` of None is
+    not carried: the rows then hold only the columns given."""
     n, dev = pos.shape[0], pos.device
     C, cap, S = grid.num_cells, grid.cap, grid.num_slots
     cid = _cell_ids(grid, pos, valid)
     scid, perm = torch.sort(cid, stable=True)
-    cols = [pos, vel] + ([density[:, None]] if density is not None else [])
+    cols = [pos] + ([vel] if vel is not None else [])
+    cols += [density[:, None]] if density is not None else []
     rows = torch.cat(cols + [mass[:, None]], dim=1)[perm]
 
     # rank within cell = i - (index of this cell's first row), where the
@@ -244,7 +246,7 @@ def sort_rows(
 def _bin_rows(
     grid: BinnedGrid,
     pos: torch.Tensor,
-    vel: torch.Tensor,
+    vel: torch.Tensor | None,
     mass: torch.Tensor,
     owner: torch.Tensor,
     valid: torch.Tensor,
@@ -254,15 +256,21 @@ def _bin_rows(
 ) -> BinnedState:
     """Sort K compact rows by cell id and place them into the dense slots
     (``expand``). ``owner`` must be the particle index of each row (a
-    permutation of 0..K-1)."""
+    permutation of 0..K-1). ``vel=None`` places no velocity (the dense vel
+    is zeros), ``density=None`` no density (zeros)."""
     n, dim, dev, dt = pos.shape[0], grid.dim, pos.device, pos.dtype
     S = grid.num_slots
+    nv = dim if vel is not None else 0
     srt = sort_rows(grid, pos, vel, mass, owner, valid, density)
     dense, owner_d = expand(srt.first, srt.count, srt.rows, srt.owner, grid.cap)
     pos_d = dense[:, :dim].contiguous()
-    vel_d = dense[:, dim : 2 * dim].contiguous()
+    vel_d = (
+        dense[:, dim : dim + nv].contiguous()
+        if nv
+        else torch.zeros((S, dim), dtype=dt, device=dev)
+    )
     dens_d = (
-        dense[:, 2 * dim].contiguous()
+        dense[:, dim + nv].contiguous()
         if density is not None
         else torch.zeros(S, dtype=dt, device=dev)
     )
@@ -348,21 +356,42 @@ def frozen_mask(grid: BinnedGrid, b: BinnedState) -> torch.Tensor:
     return b.owner >= n_fluid
 
 
-def _compact(grid: BinnedGrid, b: BinnedState):
-    """Gather the K compact particle rows out of the dense layout. O(K)."""
+def _compact(
+    grid: BinnedGrid,
+    b: BinnedState,
+    light: bool = False,
+    carry_density: bool = False,
+):
+    """Gather the K compact particle rows out of the dense layout. O(K).
+
+    Returns (pos, vel, mass, alive, density): vel is None when ``light``,
+    density None unless ``carry_density`` (the payload rules of ``rebin``)."""
     S = grid.num_slots
     safe = torch.clamp(b.slot_of, 0, S - 1).to(torch.int64)
-    return b.pos[safe], b.vel[safe], b.mass[safe], b.slot_of < S
+    vel = None if light else b.vel[safe]
+    dens = b.density[safe] if carry_density else None
+    return b.pos[safe], vel, b.mass[safe], b.slot_of < S, dens
 
 
-def rebin(grid: BinnedGrid, b: BinnedState) -> BinnedState:
+def rebin(
+    grid: BinnedGrid,
+    b: BinnedState,
+    light: bool = False,
+    carry_density: bool = False,
+) -> BinnedState:
     """Re-sort after drift: compact-gather K rows, then re-bin. O(K log K).
 
-    The rebinned state carries no density (WCSPH recomputes it next)."""
-    pos, vel, mass, alive = _compact(grid, b)
+    ``light=True`` leaves the velocity out (the rebinned state carries zero
+    vel): PBF's mid-step rebins under its "gather" epilogue, whose
+    constraint iterations read only pos and mass. ``carry_density=True``
+    places the density column too, where it is zero otherwise: PBF's "ride"
+    epilogue keeps the previous step's density there. WCSPH takes neither
+    (it recomputes density next)."""
+    pos, vel, mass, alive, dens = _compact(grid, b, light, carry_density)
     owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
     return _bin_rows(
-        grid, pos, vel, mass, owner, alive, b.n_rebins + 1, b.sim_time
+        grid, pos, vel, mass, owner, alive, b.n_rebins + 1, b.sim_time,
+        density=dens,
     )
 
 
@@ -416,7 +445,7 @@ def _window_view(w: torch.Tensor, blk: int, cap: int) -> torch.Tensor:
 def slab_windows(grid: BinnedGrid, x: torch.Tensor) -> list[torch.Tensor]:
     """For each of the 3^(dim-1) slabs, the [num_cells, 3*cap, ...] window
     of every cell; slots outside [0, S) read as zeros. Unblocked: for
-    small grids and tests (``slab_fold`` is the blocked form)."""
+    small grids and tests (``slab_fold`` is the chunked form)."""
     cap = grid.cap
     shifts = grid.slab_shifts()
     pad = (max(abs(s) for s in shifts) + 1) * cap
@@ -435,71 +464,66 @@ def slab_fold(
     init: Sequence[torch.Tensor],
     every_slot: bool = False,
 ) -> tuple[torch.Tensor, ...]:
-    """Fold ``pair_fn`` over all neighbor slabs, blocked over cells.
+    """Fold ``pair_fn`` over all neighbor slabs, in chunks of home cells.
 
     ``fields`` maps name -> flat [S, ...] tensor and must hold ``mass``.
     ``init`` is a sequence of flat per-slot accumulators [S, ...]. For every
-    block of ``grid.block_cells`` cells and every slab,
+    chunk of up to ``grid.block_cells`` home cells and every slab,
     ``pair_fn(carry, home, win)`` receives
 
-      carry  tuple of [blk, r, ...] accumulators for the home block
-      home   dict of [blk, r, ...] home-slot field blocks
-      win    dict of [blk, 3*cap, ...] neighbor-window field blocks
+      carry  tuple of [n, r, ...] accumulators for the chunk's home slots
+      home   dict of [n, r, ...] home-slot field blocks
+      win    dict of [n, 3*cap, ...] neighbor-window field blocks (cells
+             c-1, c, c+1 of the slab, in that order; cells outside the grid
+             read as zeros)
 
-    and returns the updated carry. Blocking bounds the pair temporaries to
-    [blk, cap, 3cap] whatever the grid size.
+    and returns the updated carry. Chunking bounds the pair temporaries to
+    [block_cells, cap, 3cap] whatever the grid size.
 
-    Blocks with no particle are skipped and home rows are cut to the
-    block's deepest cell (``r``): rank r is occupied only if its cell
-    holds more than r particles, so the cut rows are empty slots. Both
-    leave every occupied slot's sums unchanged; empty slots get 0. Reading
-    the occupancy is one device-to-host copy per call. ``every_slot`` turns
-    both off; only ``density_window_plain`` sets it, because its reference
+    Only cells that hold a particle are home cells, and home rows are cut
+    to the chunk's deepest cell (``r``): rank r is occupied only if its
+    cell holds more than r particles, so the cut rows are empty slots. Both
+    leave every occupied slot's sums unchanged; the slots of empty cells
+    get 0. Finding the cells and the depths costs two device-to-host copies
+    per call. ``every_slot`` makes every cell a home cell with all its
+    rows; only ``density_window_plain`` sets it, because its reference
     (``pallas_density.density_pallas``) keeps a density on empty slots.
     """
     cap, C = grid.cap, grid.num_cells
     shifts = grid.slab_shifts()
     blk = min(grid.block_cells or C, C)
-    nblk = -(-C // blk)
-    padc = max(abs(s) for s in shifts) + 1  # halo cells on each side
-    win_cells = blk + 2 * padc
-    tail_rows = (padc + nblk * blk - C) * cap
+    padc = max(abs(s) for s in shifts) + 1  # zero cells on each side
+    mass = fields["mass"]
+    dev = mass.device
 
-    def pad_rows(x):
+    def cells_view(x):
         z = x.new_zeros((padc * cap,) + x.shape[1:])
-        back = x.new_zeros((tail_rows,) + x.shape[1:])
-        return torch.cat([z, x, back])
+        return torch.cat([z, x, z]).view((C + 2 * padc, cap) + x.shape[1:])
 
-    padded = {k: pad_rows(v) for k, v in fields.items()}
+    padded = {k: cells_view(v) for k, v in fields.items()}
     if every_slot:
-        depth = [cap] * nblk
+        cells = torch.arange(C, device=dev)
+        depth = [cap] * -(-C // blk)
     else:
-        occ = padded["mass"][padc * cap : (padc + nblk * blk) * cap] > 0
-        depth = occ.reshape(nblk, blk, cap).sum(2).amax(1).tolist()
+        occ = (mass.reshape(C, cap) > 0).sum(1)
+        cells = occ.nonzero()[:, 0]
+        n = cells.shape[0]
+        per = torch.nn.functional.pad(occ[cells], (0, -n % blk))
+        depth = per.view(-1, blk).amax(1).tolist() if n else []
+    offs = torch.arange(-1, 2, device=dev)
 
     out = tuple(torch.zeros_like(a) for a in init)
-    for b, rows in enumerate(depth):
-        if rows == 0:
-            continue
-        start = b * blk * cap
-        win = {k: v[start : start + win_cells * cap] for k, v in padded.items()}
-        home = {
-            k: w[padc * cap : (padc + blk) * cap].reshape((blk, cap) + w.shape[1:])[
-                :, :rows
-            ]
-            for k, w in win.items()
-        }
-        carry = tuple(a.new_zeros((blk, rows) + a.shape[1:]) for a in init)
+    for i, rows in enumerate(depth):
+        idx = cells[i * blk : (i + 1) * blk] + padc  # padded cell ids
+        n = idx.shape[0]
+        home = {k: v[idx, :rows] for k, v in padded.items()}
+        carry = tuple(a.new_zeros((n, rows) + a.shape[1:]) for a in init)
         for sh in shifts:
-            base = (padc + sh - 1) * cap
-            slab = {
-                k: _window_view(w[base : base + (blk + 2) * cap], blk, cap)
-                for k, w in win.items()
+            nbr = idx[:, None] + (sh + offs)[None, :]  # [n, 3] window cells
+            win = {
+                k: v[nbr].reshape((n, 3 * cap) + v.shape[2:]) for k, v in padded.items()
             }
-            carry = pair_fn(carry, home, slab)
-        n_cells = min(blk, C - b * blk)
+            carry = pair_fn(carry, home, win)
         for o, c in zip(out, carry):
-            o.view((C, cap) + o.shape[1:])[b * blk : b * blk + n_cells, :rows] = (
-                c[:n_cells]
-            )
+            o.view((C, cap) + o.shape[1:])[idx - padc, :rows] = c
     return out

@@ -26,7 +26,12 @@ from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
 from sph_pie_torch.utils.struct import replace
 
 
-def maybe_rebin(grid: nb.BinnedGrid, b: nb.BinnedState) -> nb.BinnedState:
+def maybe_rebin(
+    grid: nb.BinnedGrid,
+    b: nb.BinnedState,
+    light: bool = False,
+    carry_density: bool = False,
+) -> nb.BinnedState:
     """Two-stage lazy rebin trigger.
 
     ``travel`` (sum of per-step max displacement bounds) is cheap but
@@ -34,7 +39,9 @@ def maybe_rebin(grid: nb.BinnedGrid, b: nb.BinnedState) -> nb.BinnedState:
     against the bin-time anchor ``bin_pos``: rebin only if a particle
     really drifted past skin/2, otherwise tighten ``travel`` to the
     measured drift. The cell-list guarantee needs drift <= skin/2 when the
-    pair sums run, right after this check.
+    pair sums run, right after this check. PBF moves particles between its
+    folds, so it calls this before every fold; ``light`` and
+    ``carry_density`` go to ``nb.rebin``.
 
     Each branch is a decision on the host, so it reads one device scalar:
     one device-to-host sync per step, two on a step where ``travel`` has
@@ -45,7 +52,7 @@ def maybe_rebin(grid: nb.BinnedGrid, b: nb.BinnedState) -> nb.BinnedState:
         return b
     d = torch.sqrt(((b.pos - b.bin_pos) ** 2).sum(dim=-1).amax())
     if bool(d > thr):
-        return nb.rebin(grid, b)
+        return nb.rebin(grid, b, light=light, carry_density=carry_density)
     return replace(b, travel=d)
 
 

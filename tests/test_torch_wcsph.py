@@ -84,14 +84,19 @@ def test_100_steps_f64_match_reference_and_oracle():
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running a step leaves jax unimported."""
+    """Importing the port and running a WCSPH step, a PBF step and a frame
+    leaves jax unimported."""
     code = (
         "import sys\n"
         "from sph_pie_torch.scenes import dam_break_2d\n"
-        "from sph_pie_torch.solvers import wcsph_binned\n"
+        "from sph_pie_torch.solvers import pbf, wcsph_binned\n"
+        "from sph_pie_torch.render import png, splat\n"
         "s = dam_break_2d(200, device='cpu')\n"
         "b = wcsph_binned.step(s.params, s.bgrid, s.binned_state())\n"
         "assert int(b.overflow) == 0\n"
+        "b = pbf.step(s.params, s.bgrid, pbf.flagship_params(device='cpu'), b)\n"
+        "assert int(b.overflow) == 0\n"
+        "png.encode_gray_png(splat.render_binned_u8(s.bgrid, b, (32, 32)).numpy())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'sph_pie_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -100,6 +105,30 @@ def test_port_runs_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.slow
+def test_full_contract_4k_1000_steps():
+    """The correctness anchor held for the port: 2D dam break ~4k, float64,
+    1000 steps of the port's binned WCSPH on the CPU, within 1e-3 of the
+    oracle (the native C++ oracle when built, else the NumPy one), as
+    tests/test_wcsph.py holds the reference."""
+    from sph_pie_tpu import native
+
+    with jax.enable_x64():
+        scene = jb.dam_break_2d(n_target=4096, dtype=jnp.float64)
+        oracle = oracle_from_scene(scene, dtype=np.float64)
+        if native.available():
+            want, _ = native.oracle_run(scene.params, oracle.pos, oracle.vel, oracle.mass, 1000)
+        else:
+            want = oracle.run(1000)
+    ts = tb.dam_break_2d(n_target=4096, dtype=torch.float64, device="cpu")
+    b = tw.simulate(ts.params, ts.bgrid, ts.binned_state(), 1000)
+    assert int(b.overflow) == 0
+    st = tnb.unbin(ts.bgrid, b, ts.state.capacity)
+    got = st.pos.numpy()[st.active.numpy()]
+    err = np.abs(got - want).max()
+    assert err < 1e-3, f"contract violated: max |dx| = {err}"
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
