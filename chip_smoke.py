@@ -69,6 +69,23 @@ a scene without XSPH, and holds card against CPU, ride against gather, and
 the card's frames (``splat``, ``splat_binned`` and their uint8 forms)
 against the CPU's.
 
+Phase E drives the scene runner (``solvers/run.py``: emission, binning,
+steps and unbinning epoch by epoch) with obstacles and emitters. E1 is
+BASELINE config #2 as ``bench.py``'s ``emitter_2d_4k`` row runs it:
+``emitter_2d(4096)``, ``run_scene`` for 100 steps warm, then 3 reps of 500,
+each with a scalar read inside the timed window; it prints steps/s, the
+particles emitted, host syncs and the launches of ``density``, ``forces``
+and ``expand``, holds the card against the CPU (400 steps in float64, 100
+in float32) and runs 2,000 steps, until the stream lies on the sphere, for
+the penetration gate of ``tests/test_scenes.py``. E2 runs every scene file of ``config/`` through
+``load_scene_file`` and ``run_scene`` (the two emitter scenes against the
+CPU) and ``python -m sph_pie_torch simulate dam_break_2d`` in-process. E3
+runs the epoch loop at 1M with a stirring sphere (WCSPH, then PBF), times
+one obstacle term and one epoch boundary, and holds PBF epochs against
+``pbf.simulate`` at 20k. E1 and E3 also print a ``torch.profiler`` window
+of one epoch: device kernels a step and the device's busy share. E4 runs ``simulate_adaptive`` on the card and on
+the CPU.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. On success
 the line before the last is a JSON object with one entry per kernel (its
@@ -125,6 +142,25 @@ U8_SHARE = 1e-3       # D2: u8 frames card vs CPU: at most one count apart, on a
 D_WARM, D_STEPS, D_REPS = 1, 2, 3  # D1: PBF steps before timing; timed steps x reps
 D2_STEPS = 5          # D2: PBF steps on the card and on the CPU
 FRAME = dict(resolution=(256, 256), axis=1, gain=50.0)  # bench.py's in-loop frame
+E1_WARM, E1_STEPS, E1_REPS = 100, 500, 3  # E1: bench.py's _measure_emitter
+E1_F64_STEPS = 400    # E1: float64 card vs CPU, 8 epochs
+E1_CONTACT_STEPS = 2000  # E1: the stream meets the sphere after ~1,300 steps
+EMIT_F64_ATOL = 1e-9  # E1: f64 max |dpos| after 400 steps, card vs CPU: the
+                      # kernels sum in another order than the plain folds;
+                      # the CPU tests hold the plain versions to the reference
+                      # at this bound over such rolls
+E2_STEPS = 200        # E2: the emitter scene files, card vs CPU
+E2_DAM_STEPS = 100    # E2: the dam-break files and the CLI run
+E3_EPOCHS, E3_EPOCH_STEPS = 2, 50  # E3: the epoch loop at 1M
+E3_PBF_STEPS = 2      # E3: one PBF epoch at 1M
+E3_PBF_N, E3_PBF_EPOCHS, E3_PBF_EPOCH_STEPS = 20_000, 2, 5  # E3: PBF epochs vs simulate
+PBF_EPOCH_ATOL = 1e-4  # E3: f32 max |dpos|, epochs vs one roll: the boundary
+                       # forces a rebin the roll lacks, a summation-order
+                       # change PBF's projection amplifies over the 5 steps
+                       # after it (10x D2's card-vs-CPU bound; the reference's
+                       # 3e-3 is over 60 steps, tests/test_scenes.py); a
+                       # dropped density payload shows at >= 1e-2
+E4_N, E4_STEPS = 600, 120  # E4: simulate_adaptive to t_end = 120 dt
 
 # The least time of a kernel's work (bound_ms): the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
@@ -964,7 +1000,11 @@ def phase_c(main_path) -> list[dict]:
     occupied = int((b.mass != 0).sum())
     mma_bytes = S1 * 28 + occupied * 32
     least = {
-        "density_cap32": bound(S1 * 21, pairs * DENSITY_PAIR_FLOPS),
+        # masked, as density: mass in and rho out for every slot (8 bytes),
+        # pos of the occupied slots (12)
+        "density_cap32": bound(S1 * 8 + occupied * 12, pairs * DENSITY_PAIR_FLOPS),
+        # unmasked: every slot gets a sum from its own stored position, so
+        # pos (12) and mass (4) in and rho (4) out of every slot
         "density_window": bound(S1 * 20, (pairs + extra) * DENSITY_PAIR_FLOPS),
         "center_slab_dense": bound(slab_bytes, int(per_home.sum()) * DENSITY_PAIR_FLOPS),
         "center_slab_compact": bound(
@@ -1065,11 +1105,15 @@ def phase_b() -> tuple[list[dict], tuple]:
     pairs = pairs_in_support(g, b, p.h * p.h)
     pair_flops = FORCES_PAIR_FLOPS + COHESION_FLOPS * p.use_cohesion + XSPH_FLOPS * p.use_xsph
     ncol, K = srt.rows.shape[1], srt.rows.shape[0]
+    occupied = int((b.mass != 0).sum())
     least = {
-        # pos, mass, valid in; rho out
-        "density": bound(S * (dim * es + es + 1 + es), pairs * DENSITY_PAIR_FLOPS),
-        # pos, vel, mass, density, pressure in; acc, xsph out
-        "forces": bound(S * (2 * dim * es + 3 * es + 2 * dim * es), pairs * pair_flops),
+        # what any implementation must touch: mass in and rho out for every
+        # slot, pos only of the occupied slots (valid follows from mass)
+        "density": bound(S * 2 * es + occupied * dim * es, pairs * DENSITY_PAIR_FLOPS),
+        # mass in, acc and xsph out for every slot; pos, vel, density and
+        # pressure only of the occupied slots
+        "forces": bound(S * (es + 2 * dim * es) + occupied * (2 * dim + 2) * es,
+                        pairs * pair_flops),
         # first, count, rows, owner in; dense rows, owner out
         "expand": bound(g.num_cells * 8 + K * (ncol * es + 4) + S * (ncol * es + 4), 0),
     }
@@ -1079,10 +1123,11 @@ def phase_b() -> tuple[list[dict], tuple]:
     busy = int(torch.nn.functional.pad(occ, (0, n_runs * R - g.num_cells)).reshape(n_runs, R)
                .any(1).sum())
     print(f" pairs in support on the final state: {pairs} ({pairs / n:.2f} per particle); "
-          f"runs of {R} cells with an occupied home slot: {busy} of {n_runs}")
+          f"runs of {R} cells with an occupied home slot: {busy} of {n_runs}; occupied slots "
+          f"{occupied} of {S}")
     rows = [kernel_row(name, launches[name], errs[name], k_ms, p_ms, least[name])
             for name, (k_ms, p_ms) in timings.items()]
-    return rows, (s.params, g, b)
+    return rows, (s.params, g, b), ms
 
 
 def pbf_roll(params, grid, pp, b, steps: int, checksum):
@@ -1278,6 +1323,296 @@ def phase_d2() -> None:
         check(int(d.max()) <= 1 and share <= U8_SHARE, f"{name}: card differs from the CPU")
 
 
+def path_kernels():
+    """The three kernels of the main path and the epoch loop."""
+    from sph_pie_torch.neighbors.density import density
+    from sph_pie_torch.neighbors.expand import expand
+    from sph_pie_torch.neighbors.forces import forces
+
+    return density, forces, expand
+
+
+def reset_launches() -> None:
+    for k in path_kernels():
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    return {k.__name__: k.launches for k in path_kernels()}
+
+
+def check_in_box(params, st, overflow, what: str) -> None:
+    """A run's gates: overflow 0, every active position finite and inside
+    the box +- 5h."""
+    h = float(params.h)
+    lo, hi = params.bound_min - 5 * h, params.bound_max + 5 * h
+    pos = st.pos[st.active]
+    check(int(overflow) == 0, f"{what}: overflow {int(overflow)}")
+    check(bool(torch.isfinite(pos).all()), f"{what}: non-finite position")
+    check(bool(((pos >= lo) & (pos <= hi)).all()), f"{what}: position outside the box +- 5h")
+
+
+def card_vs_cpu(card, cpu, what: str, atol: float) -> float:
+    """Final flat states of one run on the card and on the CPU: n_active and
+    the active mask equal, max |dpos| of the active rows within ``atol``."""
+    act = cpu.active
+    same = torch.equal(card.active.cpu(), act)
+    err = (card.pos.cpu()[act] - cpu.pos[act]).abs().max().item() if bool(act.any()) else 0.0
+    print(f"  {what}: n_active card {int(card.active.sum())} CPU {int(act.sum())}, active masks "
+          f"equal: {same}, max |dpos| {err:.3e} (bound {atol:g})")
+    check(same and err <= atol, f"{what}: card differs from the CPU")
+    return err
+
+
+def device_profile(fn, steps: int, label: str) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and print its device work:
+    kernels (and copies) a step, the device's busy share of the wall time
+    (the union of their intervals) and the five largest by device time.
+    Measured apart from the timed runs: the profiler adds host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        print(f" {label} profile: no device events recorded (device time not measured)")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list[float]] = {}
+    for e in evs:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+    print(f" {label} profile over {steps} steps: {len(evs) / steps:.1f} device kernels and "
+          f"copies a step, device busy {busy / 1e3:.3f} of {wall_us / 1e3:.3f} ms wall "
+          f"({busy / wall_us:.3f}); by device time: " + "; ".join(
+              f"{name[:48]} x{len(t)} {sum(t) / 1e3:.3f} ms" for name, t in top))
+
+
+def phase_e1() -> None:
+    from sph_pie_torch.scenes import emitter_2d
+    from sph_pie_torch.solvers import run as run_lib
+
+    print("== Phase E1: BASELINE config #2, emitter_2d(4096) through run_scene (bench.py's "
+          "emitter_2d_4k row)")
+    s = emitter_2d(4096, device="cuda")
+    g = s.bgrid
+    print(f" capacity {s.state.capacity}, cap {g.cap}, cells {g.num_cells}, dt "
+          f"{float(s.params.dt):.4e} s, rows due by the last epoch (step 450): "
+          f"{int(((s.emitter.spawn_step >= 0) & (s.emitter.spawn_step <= 450)).sum())}")
+    syncs: list[int] = []
+    walls = []
+    torch.cuda.synchronize()
+    reset_launches()
+    # ---- the epoch-loop path: counts start at 0 here ----
+    st, _ = run_lib.run_scene(s, E1_WARM)
+    torch.cuda.synchronize()
+    for _ in range(E1_REPS):
+        t0 = time.perf_counter()
+        with counting_syncs(syncs):
+            st, overflow = run_lib.run_scene(s, E1_STEPS)
+            float(st.pos[0, 0])  # a scalar read inside the timed window, as bench.py
+        walls.append(time.perf_counter() - t0)
+    launches = read_launches()
+    # ---- counts read here ----
+    med = statistics.median(walls)
+    run = E1_WARM + E1_STEPS * E1_REPS
+    emitted = int(st.active.sum())
+    print(f" steps/s median {E1_STEPS / med:.1f} (wall s per {E1_STEPS} steps: "
+          f"{', '.join(f'{w:.4f}' for w in walls)})")
+    print(f" particles emitted {emitted}, overflow {int(overflow)}, host syncs "
+          f"{sum(syncs) / (E1_STEPS * E1_REPS):.3f}/step")
+    print(f" launches over {run} steps ({run // 50} epochs): {launches}")
+    check_in_box(s.params, st, overflow, "E1")
+    check(emitted > 0, "E1: nothing emitted")
+    check(launches["density"] == run and launches["forces"] == run,
+          f"E1: density/forces launches {launches} != steps {run}")
+    check(launches["expand"] >= run // 50, "E1: expand launches below one per epoch")
+    device_profile(lambda: run_lib.run_scene(s, 50), 50, "E1 one epoch")
+
+    for dt, steps, atol in ((torch.float64, E1_F64_STEPS, EMIT_F64_ATOL),
+                            (torch.float32, E1_WARM, TRAJ_ATOL)):
+        card, _ = run_lib.run_scene(emitter_2d(4096, dtype=dt, device="cuda"), steps)
+        cpu, _ = run_lib.run_scene(emitter_2d(4096, dtype=dt, device="cpu"), steps)
+        card_vs_cpu(card, cpu, f"{steps} steps {dt}", atol)
+
+    # Long enough for the stream to land on the sphere: the penetration
+    # bound of tests/test_scenes.py.
+    st, overflow = run_lib.run_scene(s, E1_CONTACT_STEPS)
+    check_in_box(s.params, st, overflow, f"E1 {E1_CONTACT_STEPS} steps")
+    d = torch.sqrt(((st.pos[st.active] - 0.5) ** 2).sum(-1))
+    gap = 0.12 - 3 * float(s.params.h)
+    print(f" {E1_CONTACT_STEPS} steps: {int(st.active.sum())} particles, {int((d < 0.12 + 0.01).sum())} "
+          f"within 0.01 m of the sphere, closest to its center {d.min().item():.4f} m (radius "
+          f"0.12, bound > {gap:.4f})")
+    check(bool((d < 0.13).any()), "E1: the stream never reached the sphere")
+    check(bool((d > gap).all()), "E1: the stream penetrates the sphere")
+
+
+def phase_e2() -> None:
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from sph_pie_torch import __main__ as cli
+    from sph_pie_torch.scenes.config import load_scene_file
+    from sph_pie_torch.solvers import run as run_lib
+
+    print("== Phase E2: the scene files through load_scene_file and run_scene, and the CLI")
+    reset_launches()
+    for path in sorted((Path(__file__).resolve().parent / "config").glob("scene-*.json")):
+        s = load_scene_file(path, device="cuda")
+        steps = E2_STEPS if s.emitter is not None else E2_DAM_STEPS
+        t0 = time.perf_counter()
+        st, overflow = run_lib.run_scene(s, steps)
+        torch.cuda.synchronize()
+        print(f" {path.name}: {steps} steps in {time.perf_counter() - t0:.2f} s, "
+              f"n_active {int(st.active.sum())} of {s.state.capacity}, overflow {int(overflow)}")
+        check_in_box(s.params, st, overflow, path.name)
+        if s.emitter is None:
+            continue
+        cpu, _ = run_lib.run_scene(load_scene_file(path, device="cpu"), steps)
+        card_vs_cpu(st, cpu, f"{path.name} {steps} steps", TRAJ_ATOL)
+        if "twin" in path.name:
+            spawn, x0 = s.emitter.spawn_step, s.emitter.spawn_pos[:, 0]
+            left, right = (spawn >= 0) & (x0 < 0.5), (spawn >= 0) & (x0 > 0.5)
+            first = (int(spawn[left].min()), int(spawn[right].min()))
+            x = st.pos[st.active, 0]
+            fired = (int((x < 0.5).sum()), int((x > 0.5).sum()))
+            print(f"  twin jets: first rows at steps {first}; active left / right {fired}")
+            check(first[1] > first[0] and min(fired) > 0, "twin jets: both nozzles must fire, "
+                  "the delayed one later")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["simulate", "dam_break_2d", "--steps", str(E2_DAM_STEPS)])
+    m = json.loads(out.getvalue())
+    print(f" python -m sph_pie_torch simulate dam_break_2d --steps {E2_DAM_STEPS}: rc {rc}, "
+          f"n_active {m['n_active']}, overflow {m['overflow']}, max_speed {m['max_speed']:.4f}, "
+          f"mean_density {m['mean_density']:.3f}")
+    check(rc == 0 and m["overflow"] == 0 and m["n_active"] > 0, "CLI run")
+    check(all(np.isfinite(v) for v in m.values()), "CLI: a metric is not finite")
+    print(f" launches in E2: {read_launches()}")
+
+
+def phase_e3(b_ms: float) -> None:
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.scenes import dam_break_3d, emitter, obstacles
+    from sph_pie_torch.solvers import pbf
+    from sph_pie_torch.solvers import run as run_lib
+
+    print("== Phase E3: the epoch loop at 1M with a stirring sphere, dam_break_3d(1_000_000)")
+    s = dam_break_3d(1_000_000, device="cuda")
+    p, g = s.params, s.bgrid
+    dt = float(p.dt)
+    # radius 0.05 in the column, swinging 0.05 m along x with a period of 40 steps
+    obs = obstacles.make(3, spheres=[([0.15, 0.2, 0.3], 0.05)],
+                         sphere_motions=[([0.0, 0.0, 0.0], [0.05, 0.0, 0.0], 1.0 / (40 * dt), 0.0)],
+                         device="cuda")
+    em = emitter.no_emitter(s.state.capacity, 3, device="cuda")
+    steps = E3_EPOCHS * E3_EPOCH_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # ---- the epoch loop at 1M: counts start at 0 here ----
+    t0 = time.perf_counter()
+    st, overflow = run_lib.run_epochs(p, g, s.state, em, obs, E3_EPOCH_STEPS, E3_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    # ---- counts read here ----
+    peak = torch.cuda.max_memory_allocated()
+    ms = wall * 1e3 / steps
+    print(f" WCSPH {E3_EPOCHS} epochs of {E3_EPOCH_STEPS} steps: {ms:.3f} ms/step (Phase B "
+          f"{b_ms:.3f} ms/step on this card), peak {peak / 2**30:.3f} GiB, launches {launches}")
+    check_in_box(p, st, overflow, "E3 WCSPH")
+    check(launches["density"] == steps and launches["forces"] == steps,
+          f"E3: density/forces launches {launches} != steps {steps}")
+    check(launches["expand"] >= E3_EPOCHS, "E3: expand launches below one per epoch")
+
+    b = nb.bin_state(g, st, s.boundary, sim_time=float(steps) * p.dt)
+    accel_ms = cuda_ms(lambda: obstacles.accel(obs, b.pos, b.vel, b.sim_time), 10)
+
+    def boundary():
+        flat = emitter.emit_due(nb.unbin(g, b, s.state.capacity), em, steps)
+        return nb.bin_state(g, flat, s.boundary, sim_time=float(steps) * p.dt)
+
+    boundary_ms = cuda_ms(boundary, 3)
+    print(f" one obstacle term over {g.num_slots} slots {accel_ms:.3f} ms; one epoch boundary "
+          f"(unbin + emit_due + bin_state) {boundary_ms:.3f} ms, {boundary_ms / E3_EPOCH_STEPS:.3f} "
+          f"ms a step over an epoch of {E3_EPOCH_STEPS}")
+    d = torch.sqrt(((st.pos[st.active] - torch.tensor([0.15 + 0.05 * float(np.sin(
+        2 * np.pi * steps / 40)), 0.2, 0.3], device="cuda")) ** 2).sum(-1))
+    print(f" particles inside the sphere at the end: {int((d < 0.05).sum())} (closest "
+          f"{d.min().item():.4f} m, radius 0.05, h {float(p.h):.4f})")
+    del b
+    device_profile(lambda: run_lib.run_epochs(p, g, s.state, em, obs, 10, 1), 10,
+                   "E3 one epoch of 10 steps")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    st, overflow = run_lib.run_epochs(p, g, s.state, em, obs, E3_PBF_STEPS, 1,
+                                      pbf_params=pbf.flagship_params())
+    torch.cuda.synchronize()
+    print(f" PBF flagship, 1 epoch of {E3_PBF_STEPS} steps with the sphere: "
+          f"{(time.perf_counter() - t0) * 1e3 / E3_PBF_STEPS:.1f} ms/step, launches "
+          f"{read_launches()}")
+    check_in_box(p, st, overflow, "E3 PBF")
+    del st, s
+
+    s = dam_break_3d(E3_PBF_N, device="cuda")
+    pp = pbf.flagship_params()
+    steps = E3_PBF_EPOCHS * E3_PBF_EPOCH_STEPS
+    ep, ov = run_lib.run_epochs(s.params, s.bgrid, s.state, None, None, E3_PBF_EPOCH_STEPS,
+                                E3_PBF_EPOCHS, pbf_params=pp)
+    roll = pbf.simulate(s.params, s.bgrid, pp, s.binned_state(), steps)
+    direct = nb.unbin(s.bgrid, roll, s.state.capacity)
+    act = direct.active
+    err = (ep.pos[act] - direct.pos[act]).abs().max().item()
+    rho = ep.density[act] / s.params.rest_density
+    print(f" PBF epochs ({E3_PBF_EPOCHS} x {E3_PBF_EPOCH_STEPS}) vs pbf.simulate ({steps}) at "
+          f"{E3_PBF_N}: max |dpos| {err:.3e} (bound {PBF_EPOCH_ATOL:g}); rho / rho0 after the "
+          f"epochs {rho.min().item():.4f} to {rho.max().item():.4f}")
+    check(torch.equal(ep.active, act) and err <= PBF_EPOCH_ATOL, "E3: PBF epochs differ from the roll")
+    check(bool((rho > 0.5).all()), "E3: density lost at the epoch boundary")
+    check_in_box(s.params, ep, ov, "E3 PBF 20k")
+
+
+def phase_e4() -> None:
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.neighbors.density import density
+    from sph_pie_torch.scenes import dam_break_2d
+    from sph_pie_torch.solvers import adaptive
+
+    print(f"== Phase E4: simulate_adaptive, dam_break_2d({E4_N}) to t_end = {E4_STEPS} dt, card "
+          "and CPU")
+    ks = {}
+    for dev in ("cuda", "cpu"):
+        s = dam_break_2d(E4_N, device=dev)
+        base = float(s.params.dt)
+        t_end = E4_STEPS * base
+        reset_launches()
+        b, t, k, dt_last = adaptive.simulate_adaptive(s.params, s.bgrid, s.binned_state(), t_end)
+        st = nb.unbin(s.bgrid, b, s.state.capacity)
+        ks[dev] = k
+        print(f"  {dev}: t {float(t):.6e} of {t_end:.6e}, steps {k}, dt_last {float(dt_last):.4e} "
+              f"(clamp [{0.05 * base:.4e}, {base:.4e}]), density launches {density.launches}")
+        check(float(t) >= t_end * (1 - 1e-6) and k >= E4_STEPS, f"E4 {dev}: t_end not reached")
+        check(0.05 * base * (1 - 1e-6) <= float(dt_last) <= base * (1 + 1e-6),
+              f"E4 {dev}: dt_last outside its clamp")
+        check_in_box(s.params, st, b.overflow, f"E4 {dev}")
+        check(dev == "cpu" or density.launches == k, "E4: one density launch a step")
+    check(abs(ks["cuda"] - ks["cpu"]) <= 1, f"E4: step counts {ks} differ by more than one")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1299,13 +1634,14 @@ def main() -> int:
             phase()
             seconds[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        rows, main_path = phase_b()
+        rows, main_path, b_ms = phase_b()
         seconds["B"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         rows += phase_c(main_path)
         seconds["C"] = time.perf_counter() - t0
         del main_path
-        for name, phase in (("D1", phase_d1), ("D2", phase_d2)):
+        for name, phase in (("D1", phase_d1), ("D2", phase_d2), ("E1", phase_e1),
+                            ("E2", phase_e2), ("E3", lambda: phase_e3(b_ms)), ("E4", phase_e4)):
             t0 = time.perf_counter()
             phase()
             seconds[name] = time.perf_counter() - t0

@@ -4,7 +4,8 @@ The inputs are the reference objects' fields as a mapping of name ->
 numpy array (or plain Python value), e.g.
 ``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``,
 and ``dataclasses.asdict(grid)`` for a grid. The outputs are the port's
-objects on a given device. ``to_numpy`` goes back, for comparisons.
+objects on a given device. ``scene`` takes a whole reference Scene and
+reads its fields the same way. ``to_numpy`` goes back, for comparisons.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ import torch
 from sph_pie_torch.core.params import ARRAY_FIELDS, FluidParams
 from sph_pie_torch.core.state import ParticleState
 from sph_pie_torch.neighbors.binned import BinnedGrid, BinnedState
+from sph_pie_torch.neighbors.grid import GridSpec
+from sph_pie_torch.scenes.builders import Scene
+from sph_pie_torch.scenes.emitter import EmitterSchedule
+from sph_pie_torch.scenes.obstacles import Obstacles
 from sph_pie_torch.solvers import pbf
 
 _GRID_FIELDS = tuple(f.name for f in dataclasses.fields(BinnedGrid))
@@ -89,6 +94,58 @@ def binned_state(
             f.name: _tensor(fields[f.name], device)
             for f in dataclasses.fields(BinnedState)
         }
+    )
+
+
+def obstacles(fields: Mapping[str, Any], *, device: torch.device | str) -> Obstacles:
+    """All 15 fields, the 0-d constants included."""
+    return Obstacles(
+        **{f.name: _tensor(fields[f.name], device) for f in dataclasses.fields(Obstacles)}
+    )
+
+
+def emitter_schedule(
+    fields: Mapping[str, Any], *, device: torch.device | str
+) -> EmitterSchedule:
+    return EmitterSchedule(
+        **{
+            f.name: _tensor(fields[f.name], device)
+            for f in dataclasses.fields(EmitterSchedule)
+        }
+    )
+
+
+def fields_of(obj) -> dict[str, Any]:
+    """A reference dataclass's fields: arrays as numpy, plain values kept
+    (the input form of the converters above)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = v if isinstance(v, (bool, int, float, str, tuple)) else np.asarray(v)
+    return out
+
+
+def scene(ref, *, device: torch.device | str) -> Scene:
+    """The port's Scene from a reference Scene: params, both grids, state,
+    obstacles, emitter schedule and boundary ghosts, carried as numpy."""
+    return Scene(
+        name=ref.name,
+        params=fluid_params(fields_of(ref.params), device=device),
+        gspec=GridSpec(**dataclasses.asdict(ref.gspec)),
+        bgrid=binned_grid(dataclasses.asdict(ref.bgrid)),
+        state=particle_state(fields_of(ref.state), device=device),
+        obstacles=(
+            None if ref.obstacles is None
+            else obstacles(fields_of(ref.obstacles), device=device)
+        ),
+        emitter=(
+            None if ref.emitter is None
+            else emitter_schedule(fields_of(ref.emitter), device=device)
+        ),
+        boundary=(
+            None if ref.boundary is None
+            else tuple(_tensor(a, device) for a in ref.boundary)
+        ),
     )
 
 

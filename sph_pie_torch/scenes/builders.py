@@ -19,6 +19,8 @@ from sph_pie_torch.core.state import ParticleState
 from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.grid import GridSpec, grid_from_bounds
+from sph_pie_torch.scenes import emitter as em_lib
+from sph_pie_torch.scenes import obstacles as obs_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +30,8 @@ class Scene:
     gspec: GridSpec        # naive per-particle cell grid (reference engine)
     bgrid: nb.BinnedGrid   # dense slot grid (main path)
     state: ParticleState
+    obstacles: obs_lib.Obstacles | None = None
+    emitter: em_lib.EmitterSchedule | None = None
     boundary: tuple[torch.Tensor, torch.Tensor] | None = None  # frozen ghosts
 
     def binned_state(self) -> nb.BinnedState:
@@ -216,6 +220,77 @@ def dam_break_2d(
         dtype=dtype,
         device=device,
         **overrides,
+    )
+
+
+def emitter_2d(
+    n_target: int = 4096,
+    emit_speed: float = 1.5,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cuda",
+    **overrides,
+) -> Scene:
+    """2D faucet fill: an emitter stream from a nozzle at the top of a unit
+    box onto a circular obstacle, XSPH viscosity, boundary penalty walls.
+    All ``n_target`` rows start inactive; the stream activates them."""
+    fill_area = 0.3  # m^2 the stream will eventually fill
+    dx = math.sqrt(fill_area / n_target)
+    h = 2.0 * dx
+    overrides.setdefault("xsph_eps", 0.1)
+    overrides.setdefault("viscosity", 0.05)
+    rest_density = float(overrides.pop("rest_density", 1000.0))
+    mass = lattice_mass(2, h, dx, rest_density)
+    sound_speed = float(overrides.pop("sound_speed", 40.0))
+    dt = 0.25 * h / sound_speed
+    params = make_params(
+        dim=2,
+        h=h,
+        dt=dt,
+        rest_density=rest_density,
+        sound_speed=sound_speed,
+        bound_min=[0.0, 0.0],
+        bound_max=[1.0, 1.0],
+        dtype=dtype,
+        device=device,
+        **overrides,
+    )
+    skin_frac = 0.25
+    bcap = max(8, (int(math.ceil(3.0 * ((h * (1 + skin_frac)) / dx) ** 2)) + 7) // 8 * 8)
+    gspec = grid_from_bounds([0, 0], [1, 1], cell_size=h, cap=_default_cap(2, h, dx))
+    st = state_lib.allocate(n_target, 2, dtype, device)
+    bgrid = nb.binned_grid_from_bounds(
+        [0, 0],
+        [1, 1],
+        h=h,
+        cap=bcap,
+        skin_frac=skin_frac,
+        max_particles=n_target,
+        axis_order=_gravity_first_order(2),
+        margin_cells=2,
+    )
+    emitter = em_lib.plan_stream(
+        start_index=0,
+        capacity=n_target,
+        dim=2,
+        nozzle_lo=[0.45, 0.92],
+        nozzle_hi=[0.55, 0.92 + 0.5 * dx],
+        direction=[0.0, -1.0],
+        speed=emit_speed,
+        dx=dx,
+        mass=mass,
+        dt=float(dt),
+        dtype=dtype,
+        device=device,
+    )
+    obstacles = obs_lib.make(2, spheres=[([0.5, 0.5], 0.12)], dtype=dtype, device=device)
+    return Scene(
+        name="emitter_2d",
+        params=params,
+        gspec=gspec,
+        bgrid=bgrid,
+        state=st,
+        obstacles=obstacles,
+        emitter=emitter,
     )
 
 

@@ -3,7 +3,7 @@
 The port of the reference's ``solvers/pbf.py``: the same physics,
 constants, arithmetic order and update order. A step:
 
-  predict x* from gravity and the wall penalty (speed-clamped)
+  predict x* from gravity, the wall and obstacle penalties (speed-clamped)
   repeat ``iters`` times (Jacobi projections):
       rho_i and the gradient sums        ->  lambda_i = -C_i / (denom + eps)
       dx_i = (1/rho0) sum_j m_j (lambda_i + lambda_j + s_corr) gradW_ij
@@ -32,6 +32,7 @@ from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.density import density
+from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
 from sph_pie_torch.solvers.wcsph_binned import maybe_rebin
 from sph_pie_torch.utils.struct import replace
@@ -292,8 +293,6 @@ def step(
     obstacles=None,
 ) -> nb.BinnedState:
     """One PBF step in binned space (see the module docstring)."""
-    if obstacles is not None:
-        raise NotImplementedError("obstacles are not ported yet")
     if any(grid.periodic):
         raise NotImplementedError("periodic axes are not ported yet")
     ride = pbf.epilogue == "ride"
@@ -317,6 +316,8 @@ def step(
     # Predict
     acc = torch.zeros_like(b.pos) + params.gravity
     acc = acc + boundary_accel(params, b.pos, b.vel)
+    if obstacles is not None:
+        acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
     vel = torch.where(valid, b.vel + params.dt * acc, 0.0)
     vel = clamp_speed(params, vel)
     x_star = torch.where(valid, b.pos + params.dt * vel, b.pos)

@@ -5,7 +5,8 @@ Same physics, constants and update order as the reference's
 
   1. ``maybe_rebin`` (lazy Verlet-skin trigger);
   2. density (``neighbors/density.py``), then the Tait EOS;
-  3. forces (``neighbors/forces.py``) plus gravity plus the wall penalty;
+  3. forces (``neighbors/forces.py``) plus gravity, the wall penalty and
+     the obstacle penalty (``scenes/obstacles.accel``);
   4. symplectic Euler on the slots that move, the CFL clamp, XSPH;
   5. the per-step displacement bound ``travel`` and the clock.
 
@@ -22,6 +23,7 @@ from sph_pie_torch.kernels import eos
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.forces import forces
+from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
 from sph_pie_torch.utils.struct import replace
 
@@ -63,9 +65,11 @@ def step(
     b: nb.BinnedState,
     obstacles=None,
 ) -> nb.BinnedState:
-    """One WCSPH step in binned space, with conditional amortised rebin."""
-    if obstacles is not None:
-        raise NotImplementedError("obstacles are not ported yet")
+    """One WCSPH step in binned space, with conditional amortised rebin.
+
+    ``obstacles`` (``scenes.obstacles.Obstacles``) add their penalty at the
+    clock before it advances, over every slot; the move mask drops empty
+    slots."""
     if any(grid.periodic):
         raise NotImplementedError("periodic axes are not ported yet")
     b = maybe_rebin(grid, b)
@@ -76,6 +80,8 @@ def step(
     acc, xsph = forces(params, grid, b)
     acc = acc + params.gravity
     acc = acc + boundary_accel(params, b.pos, b.vel)
+    if obstacles is not None:
+        acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
 
     move = (b.valid & ~nb.frozen_mask(grid, b))[:, None]
     vel = torch.where(move, b.vel + params.dt * acc, 0.0)

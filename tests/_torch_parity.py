@@ -20,16 +20,8 @@ from sph_pie_torch import convert
 torch.set_num_threads(1)
 
 
-def jax_fields(obj) -> dict:
-    """A reference dataclass's fields as numpy arrays / plain values."""
-    return {
-        f.name: (
-            getattr(obj, f.name)
-            if isinstance(getattr(obj, f.name), (bool, int, str, tuple))
-            else np.asarray(getattr(obj, f.name))
-        )
-        for f in dataclasses.fields(obj)
-    }
+# A reference dataclass's fields as numpy arrays / plain values.
+jax_fields = convert.fields_of
 
 
 def port_inputs(scene, b):
@@ -55,3 +47,24 @@ def load_script(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def assert_same(port_obj, ref_obj) -> None:
+    """Every field of a port dataclass equal to the reference's, exactly
+    (values and dtypes)."""
+    got, want = convert.to_numpy(port_obj), jax_fields(ref_obj)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
+        if isinstance(got[k], np.ndarray):
+            assert got[k].dtype == np.asarray(want[k]).dtype, k
+
+
+def assert_held(got_state, want_state, tol: float) -> None:
+    """A port ParticleState against a reference one: active masks equal,
+    positions of the active rows within ``tol``."""
+    got, want = convert.to_numpy(got_state), jax_fields(want_state)
+    act = np.asarray(want["active"])
+    assert np.array_equal(got["active"], act)
+    if act.any():
+        assert np.abs(got["pos"][act] - np.asarray(want["pos"])[act]).max() <= tol

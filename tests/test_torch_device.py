@@ -13,15 +13,24 @@ import torch
 from sph_pie_torch.core import params, state
 from sph_pie_torch.micro import center_slab
 from sph_pie_torch.neighbors import runs
-from sph_pie_torch.scenes import builders
+from sph_pie_torch.scenes import builders, config, emitter, obstacles
+
+ROOT = Path(__file__).resolve().parents[1]
 
 ENTRY_POINTS = {
     "block_scene": builders.block_scene,
     "dam_break_2d": builders.dam_break_2d,
     "dam_break_3d": builders.dam_break_3d,
+    "emitter_2d": builders.emitter_2d,
     "make_params": params.make_params,
     "allocate": state.allocate,
     "from_positions": state.from_positions,
+    "obstacles.make": obstacles.make,
+    "obstacles.empty": obstacles.empty,
+    "plan_stream": emitter.plan_stream,
+    "no_emitter": emitter.no_emitter,
+    "scene_from_spec": config.scene_from_spec,
+    "load_scene_file": config.load_scene_file,
 }
 
 
@@ -36,6 +45,41 @@ def test_default_device_without_a_card_raises():
         pytest.skip("a CUDA device is present: the default runs there")
     with pytest.raises((AssertionError, RuntimeError)):
         builders.dam_break_2d(200)
+
+
+SCENE_CALLS = {
+    "emitter_2d": lambda: builders.emitter_2d(512),
+    "obstacles.make": lambda: obstacles.make(2, spheres=[([0.5, 0.5], 0.1)]),
+    "plan_stream": lambda: emitter.plan_stream(
+        start_index=0, capacity=64, dim=2, nozzle_lo=[0.4, 0.9], nozzle_hi=[0.5, 0.91],
+        direction=[0.0, -1.0], speed=1.0, dx=0.01, mass=0.1, dt=1e-4),
+    "load_scene_file": lambda: config.load_scene_file(ROOT / "config" / "scene-faucet-2d.json"),
+    "scene_from_spec": lambda: config.scene_from_spec(
+        {"builder": "dam_break_2d", "builder_args": {"n_target": 200}}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENE_CALLS))
+def test_scene_entry_points_without_a_card_raise(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        SCENE_CALLS[name]()
+
+
+def test_cli_defaults_to_the_card_and_fails_without_one(capsys):
+    """``python -m sph_pie_torch simulate`` runs on ``cuda`` unless told
+    ``--device cpu``; without a card it exits with an error, having run
+    nothing on the CPU."""
+    from sph_pie_torch.__main__ import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(SystemExit) as exc:
+        main(["simulate", "dam_break_2d", "--steps", "1"])
+    assert exc.value.code == 2
+    err = capsys.readouterr()
+    assert "no CUDA device" in err.err and not err.out
 
 
 @pytest.mark.parametrize("cap", [4, 8, 32, 40, 64, 76, 80, 96, 128, 192, 200, 384])
