@@ -86,6 +86,26 @@ one obstacle term and one epoch boundary, and holds PBF epochs against
 of one epoch: device kernels a step and the device's busy share. E4 runs ``simulate_adaptive`` on the card and on
 the CPU.
 
+Phase F drives periodic domains and the utilities. F1 is the periodic
+channel ``dam_break_3d_periodic(1M)`` (984,960 particles, 86 x 34 x 65
+cells periodic along y, cap 40, 8,490,240 slots) through the WCSPH main
+path as Phase B runs it, with the launch counters reset just before and read
+just after: ``wrap_ghosts`` fills the ghost planes after every rebin check,
+so ``density.cu`` and ``forces.cu`` see occupied ghost homes and
+candidates, and ``expand.cu`` places rows folded into the primary box. It
+prints ms/step beside Phase B's, rebins and host syncs, one wrap's time
+and the occupied ghost slots, the peak memory beside
+``membudget.budget``'s reckoning, and then holds the three kernels against
+their plain versions on the final state with its ghost planes populated.
+F2 holds the card against the CPU: the channel at 20k (20 WCSPH steps, 2
+PBF steps under each epilogue, ride against gather) and the fully periodic
+2D box of ``tests/test_periodic.py`` in float64 for 300 steps, in which
+particles cross a seam. F3 runs the gather engine (``solvers/wcsph.simulate``) on
+``dam_break_2d(4096)`` for 200 steps on both devices in float64 and
+float32. F4 checkpoints F1's state, resumes 10 steps from the file and from
+memory (bit for bit), rotates a ``CheckpointManager``, times F1's step
+with ``profiling.StepTimer`` and traces one with ``device_trace``.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. On success
 the line before the last is a JSON object with one entry per kernel (its
@@ -161,6 +181,20 @@ PBF_EPOCH_ATOL = 1e-4  # E3: f32 max |dpos|, epochs vs one roll: the boundary
                        # 3e-3 is over 60 steps, tests/test_scenes.py); a
                        # dropped density payload shows at >= 1e-2
 E4_N, E4_STEPS = 600, 120  # E4: simulate_adaptive to t_end = 120 dt
+F_N = 1_000_000       # F1: dam_break_3d_periodic(1M): 984,960 particles
+F_WARM, F_STEPS, F_REPS = 5, 20, 3  # F1: as Phase B
+F2_N, F2_STEPS, F2_PBF_STEPS = 20_000, 20, 2  # F2: the channel on card and CPU
+PERIODIC_TRAJ_ATOL = 1e-5  # F2: f32 max |dpos| after 20 WCSPH or 2 PBF steps, card vs
+                           # CPU (the kernels sum in another order than the plain
+                           # folds), domain ~1 m: Phase A's and D2's bound
+F2_BOX_STEPS = 300    # F2: the 2D box of tests/test_periodic.py, drifting 0.5 m/s
+BOX_F64_ATOL = 1e-9   # F2: f64 max |dpos| of the box, card vs CPU (E1's f64 bound)
+F3_N, F3_STEPS = 4096, 200  # F3: the gather engine, dam_break_2d(4096)
+GATHER_F64_ATOL = 1e-9  # F3: f64 max |dpos| after 200 steps, card vs CPU
+GATHER_F32_ATOL = 1e-4  # F3: f32 max |dpos| after 200 steps, card vs CPU: the
+                        # card's reductions sum in another order, 20x Phase A's
+                        # 10 steps, so 10x its bound
+F4_RESUME = 10        # F4: steps resumed from a checkpoint of F1's state
 
 # The least time of a kernel's work (bound_ms): the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
@@ -1613,6 +1647,271 @@ def phase_e4() -> None:
     check(abs(ks["cuda"] - ks["cpu"]) <= 1, f"E4: step counts {ks} differ by more than one")
 
 
+def ghost_slots(grid) -> torch.Tensor:
+    """[S] bool: the slot's cell lies in the ghost ring of a periodic axis."""
+    cells = torch.arange(grid.num_cells, device="cuda")
+    ghost = torch.zeros_like(cells, dtype=torch.bool)
+    for per, pd, st in zip(grid.periodic, grid.padded_dims, grid.strides):
+        if per:
+            c = (cells // st) % pd
+            ghost |= (c == 0) | (c == pd - 1)
+    return ghost.repeat_interleave(grid.cap)
+
+
+def phase_f1(b_ms: float):
+    """The periodic channel at full width through density.cu, forces.cu and
+    expand.cu; returns (scene, final binned state) for F4."""
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.neighbors.density import density
+    from sph_pie_torch.neighbors.forces import forces
+    from sph_pie_torch.neighbors.expand import expand
+    from sph_pie_torch.scenes import dam_break_3d_periodic
+    from sph_pie_torch.solvers import wcsph_binned
+    from sph_pie_torch.utils import membudget
+
+    print(f"== Phase F1: periodic channel, dam_break_3d_periodic({F_N:_}) float32, y periodic")
+    t0 = time.perf_counter()
+    s = dam_break_3d_periodic(F_N, device="cuda")
+    g = s.bgrid
+    n = int(s.state.n_active())
+    y_len = g.dims[1] * g.cell_size
+    print(f" particles {n}, dims {'x'.join(map(str, g.dims))} (padded "
+          f"{'x'.join(map(str, g.padded_dims))}), periodic {g.periodic}, cap {g.cap}, cells "
+          f"{g.num_cells}, slots {g.num_slots}, y period {y_len:.6f} m; scene built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(n == 984_960 and g.dims == (86, 34, 65) and g.num_slots == 8_490_240,
+          "periodic channel geometry")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs: list[int] = []
+    walls = []
+    reset_launches()
+    # ---- the periodic main path: counts start at 0 here ----
+    b = s.binned_state()
+    b = wcsph_binned.simulate(s.params, g, b, F_WARM)
+    torch.cuda.synchronize()
+    rebins0 = int(b.n_rebins)
+    for _ in range(F_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting_syncs(syncs):
+            b = wcsph_binned.simulate(s.params, g, b, F_STEPS)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / F_STEPS)
+    launches = read_launches()
+    # ---- counts read here ----
+    peak = torch.cuda.max_memory_allocated()
+    run = F_WARM + F_STEPS * F_REPS
+    ms = statistics.median(walls)
+    rebins = int(b.n_rebins)
+    print(f" ms/step median {ms:.3f} (reps {', '.join(f'{w:.3f}' for w in walls)}); Phase B "
+          f"(dam_break_3d(1M), no wrap) {b_ms:.3f} in this run")
+    print(f" particle-steps/s {n / (ms / 1e3):.4e}; rebins {rebins} in {run} steps "
+          f"({rebins - rebins0} in the timed {F_STEPS * F_REPS}), overflow {int(b.overflow)}; "
+          f"host syncs {sum(syncs) / (F_STEPS * F_REPS):.3f}/step")
+    reckon = membudget.budget(g, n)
+    print(f" peak device memory {peak / 2**30:.3f} GiB; membudget reckoning for this grid "
+          f"{reckon.total_bytes / 2**30:.3f} GiB ({reckon.row()})")
+    print(f" launches over {run} steps: {launches} (density == forces == {run}, expand == 1 + "
+          f"{rebins} rebins)")
+    check(launches["density"] == run and launches["forces"] == run,
+          f"F1: density/forces launches {launches} != steps {run}")
+    check(launches["expand"] == 1 + rebins, f"F1: expand launches {launches['expand']} != 1 + "
+          f"{rebins} rebins")
+    check(int(b.overflow) == 0, "F1: overflow")
+    check(bool(torch.isfinite(b.pos[b.valid]).all()), "F1: non-finite position")
+    st = nb.unbin(g, b, s.state.capacity)
+    check(int(st.active.sum()) == n, "F1: the active count changed")
+    h, skin = float(s.params.h), g.skin
+    pos = st.pos[st.active]
+    lo, hi = s.params.bound_min - 5 * h, s.params.bound_max + 5 * h
+    xz = [0, 2]
+    check(bool(((pos[:, xz] >= lo[xz]) & (pos[:, xz] <= hi[xz])).all()),
+          "F1: x or z outside the box +- 5h")
+    y0 = g.origin[1]
+    check(bool(((pos[:, 1] >= y0 - skin) & (pos[:, 1] <= y0 + y_len + skin)).all()),
+          "F1: y outside [origin - skin, origin + L + skin]")
+
+    wrapped = nb.wrap_ghosts(g, b)
+    ghost = ghost_slots(g)
+    occ_ghost = int((wrapped.valid & ghost).sum())
+    occ_in = int((wrapped.valid & ~ghost).sum())
+    wrap_ms = cuda_ms(lambda: nb.wrap_ghosts(g, b), 10)
+    print(f" wrap_ghosts {wrap_ms:.3f} ms a call (CUDA events, mean of 10); occupied slots: "
+          f"interior {occ_in}, ghost {occ_ghost} (+{occ_ghost / occ_in:.2%})")
+    check(occ_ghost > 0, "F1: no occupied ghost slot")
+
+    print(" kernels against their plain versions on the final state, ghost planes populated:")
+    errs, plain, bk = compare_kernels(s.params, g, wrapped)
+    k_ms = {"density": cuda_ms(lambda: density(s.params, g, bk), 10),
+            "forces": cuda_ms(lambda: forces(s.params, g, bk), 10)}
+    srt = rebin_rows(g, b)
+    e_ms = cuda_ms(lambda: expand(srt.first, srt.count, srt.rows, srt.owner, g.cap), 10)
+    rest = ms - wrap_ms - k_ms["density"] - k_ms["forces"]
+    print(f" time split of a step: wrap {wrap_ms:.3f}, density {k_ms['density']:.3f}, forces "
+          f"{k_ms['forces']:.3f}, expand {e_ms:.3f} ms a rebin x {rebins / run:.3f} rebins a "
+          f"step, the rest {rest:.3f} ms (of {ms:.3f}); plain density {plain['density']:.1f}, "
+          f"forces {plain['forces']:.1f} ms")
+    return s, b
+
+
+def periodic_box(device: str, dtype):
+    """The fully periodic 2D box of tests/test_periodic.py (250 random
+    particles, drifting 0.5 m/s along x) after ``F2_BOX_STEPS`` WCSPH steps:
+    (start positions, final flat state, final binned state, period)."""
+    from sph_pie_torch.core.params import make_params
+    from sph_pie_torch.core.state import from_positions
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.solvers import wcsph_binned
+
+    rng = np.random.default_rng(0)
+    h, L, n = 0.1, 8 * 0.1 * 1.25, 250
+    pos = rng.uniform(0, L, size=(n, 2))
+    params = make_params(dim=2, h=h, dt=1e-4, bound_min=[0, 0], bound_max=[L, L],
+                         viscosity=0.05, dtype=dtype, device=device)
+    grid = nb.binned_grid_from_bounds([0, 0], [L, L], h=h, cap=32, skin_frac=0.25,
+                                      max_particles=n, periodic=(True, True))
+    st = from_positions(pos, capacity=n, vel=np.zeros_like(pos) + [0.5, 0.0], mass=1.0,
+                        dtype=dtype, device=device)
+    b = wcsph_binned.simulate(params, grid, nb.bin_state(grid, st), F2_BOX_STEPS)
+    return pos, nb.unbin(grid, b, n), b, L
+
+
+def channel_runs(device: str) -> tuple:
+    """F2's runs of ``dam_break_3d_periodic(F2_N)`` float32 on one device:
+    (scene, {"wcsph" | "ride" | "gather": final binned state})."""
+    from sph_pie_torch.scenes import dam_break_3d_periodic
+    from sph_pie_torch.solvers import pbf, wcsph_binned
+
+    s = dam_break_3d_periodic(F2_N, device=device)
+    out = {"wcsph": wcsph_binned.simulate(s.params, s.bgrid, s.binned_state(), F2_STEPS)}
+    for ep in ("ride", "gather"):
+        pp = pbf.flagship_params(epilogue=ep, device=device)
+        out[ep] = pbf.simulate(s.params, s.bgrid, pp, s.binned_state(), F2_PBF_STEPS)
+    return s, out
+
+
+def phase_f2() -> None:
+    from sph_pie_torch.neighbors import binned as nb
+
+    print(f"== Phase F2: periodic runs, card against CPU: dam_break_3d_periodic({F2_N}) float32, "
+          f"{F2_STEPS} WCSPH and {F2_PBF_STEPS} PBF steps; the 2D periodic box, float64")
+    s, card = channel_runs("cuda")
+    t0 = time.perf_counter()
+    _, host = channel_runs("cpu")
+    print(f" CPU runs {time.perf_counter() - t0:.1f} s")
+    g, cap = s.bgrid, s.state.capacity
+    print(f" particles {int(s.state.n_active())}, dims {g.dims}, slots {g.num_slots}")
+    for name in ("wcsph", "ride", "gather"):
+        bk, bh = card[name], host[name]
+        card_vs_cpu(nb.unbin(g, bk, cap), nb.unbin(g, bh, cap),
+                    f"{name}: rebins card {int(bk.n_rebins)} CPU {int(bh.n_rebins)}",
+                    PERIODIC_TRAJ_ATOL)
+        check(int(bk.n_rebins) == int(bh.n_rebins) and int(bk.overflow) == 0,
+              f"F2 {name}: rebins or overflow")
+    ur, ug = nb.unbin(g, card["ride"], cap), nb.unbin(g, card["gather"], cap)
+    rg = max((getattr(ur, k) - getattr(ug, k)).abs().max().item() for k in ("pos", "vel"))
+    print(f"  ride vs gather on the card: max |d| pos, vel {rg:.3e} (bound {RIDE_GATHER_ATOL:g})")
+    check(rg <= RIDE_GATHER_ATOL, "F2: ride and gather differ on the card")
+
+    x0, card_st, b, L = periodic_box("cuda", torch.float64)
+    _, cpu_st, bc, _ = periodic_box("cpu", torch.float64)
+    x1 = cpu_st.pos.numpy()
+    crossed = int(((x1 < 0) | (x1 >= L) | (np.abs(x1 - x0) > L / 2)).any(1).sum())
+    print(f"  2D box, {F2_BOX_STEPS} steps: {crossed} particles crossed a seam, rebins card "
+          f"{int(b.n_rebins)} CPU {int(bc.n_rebins)}, overflow {int(b.overflow)}")
+    check(crossed >= 1 and int(b.n_rebins) == int(bc.n_rebins) >= 1 and int(b.overflow) == 0,
+          "F2: the box crossed no seam, or rebins or overflow differ")
+    card_vs_cpu(card_st, cpu_st, "2D box float64", BOX_F64_ATOL)
+
+
+def phase_f3() -> None:
+    from sph_pie_torch.scenes import dam_break_2d
+    from sph_pie_torch.solvers import wcsph
+
+    print(f"== Phase F3: the gather engine, wcsph.simulate on dam_break_2d({F3_N}), "
+          f"{F3_STEPS} steps, card and CPU")
+    for dt, atol in ((torch.float64, GATHER_F64_ATOL), (torch.float32, GATHER_F32_ATOL)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            s = dam_break_2d(F3_N, dtype=dt, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[dev] = wcsph.simulate(s.params, s.gspec, s.state, F3_STEPS)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                wall = time.perf_counter() - t0
+                print(f"  {dt}: {F3_STEPS / wall:.1f} steps/s on the card, cap {s.gspec.cap}, "
+                      f"cells {s.gspec.num_cells}")
+                check_in_box(s.params, runs[dev], 0, f"F3 {dt}")
+        card_vs_cpu(runs["cuda"], runs["cpu"], f"{F3_STEPS} steps {dt}", atol)
+
+
+def phase_f4(f1) -> None:
+    import tempfile
+    from pathlib import Path
+
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.scenes import dam_break_2d
+    from sph_pie_torch.solvers import wcsph_binned
+    from sph_pie_torch.utils import checkpoint, profiling
+
+    s, b = f1
+    g, p = s.bgrid, s.params
+    print("== Phase F4: checkpoint, resume, rotation, StepTimer and device_trace on F1's state")
+    st = nb.unbin(g, b, s.state.capacity)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as d:
+        t0 = time.perf_counter()
+        path = checkpoint.save_state(Path(d) / "f1.npz", st, p, step=int(b.n_rebins))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st2, p2, _, _ = checkpoint.load_state(path, device="cuda")
+        t_load = time.perf_counter() - t0
+        same = [k for k in vars(st) if not torch.equal(getattr(st, k), getattr(st2, k))]
+        print(f"  save {t_save:.2f} s ({path.stat().st_size / 2**20:.1f} MiB), load "
+              f"{t_load:.2f} s; fields that differ after the round trip: {same}")
+        check(not same, "F4: the checkpoint changed the state")
+        mem = wcsph_binned.simulate(p, g, nb.bin_state(g, st), F4_RESUME)
+        disk = wcsph_binned.simulate(p2, g, nb.bin_state(g, st2), F4_RESUME)
+        diff = [k for k in vars(mem) if not torch.equal(getattr(mem, k), getattr(disk, k))]
+        print(f"  resumed {F4_RESUME} steps from the file and from memory: fields that differ "
+              f"{diff} (bound: none)")
+        check(not diff, "F4: a resume from the checkpoint differs from one from memory")
+
+        small = dam_break_2d(F3_N, device="cuda")
+        mgr = checkpoint.CheckpointManager(Path(d) / "rot", keep=2)
+        for step in (10, 20, 30):
+            mgr.save(small.state, small.params, step=step)
+        kept = sorted(q.name for q in (Path(d) / "rot").glob("ckpt_*.npz"))
+        _, _, latest, _ = mgr.restore_latest(device="cuda")
+        print(f"  CheckpointManager(keep=2) after steps 10, 20, 30: {kept}, restores step {latest}")
+        check(kept == ["ckpt_20.npz", "ckpt_30.npz"] and latest == 30, "F4: rotation")
+
+    timer = profiling.StepTimer()
+    for _ in range(10):
+        with timer.time("F1 step", device="cuda") as out:
+            b = wcsph_binned.step(p, g, b)
+            out["result"] = b.pos
+    stt = timer.stats()["F1 step"]
+    print(f"  StepTimer (CUDA events), 10 F1 steps: p50 {stt['p50_ms']:.3f} ms, mean "
+          f"{stt['mean_ms']:.3f}, max {stt['max_ms']:.3f}")
+    with profiling.device_trace() as prof:
+        with profiling.annotate("F1 step"):
+            b = wcsph_binned.step(p, g, b)
+            torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    spans = [e for e in evs if e.name == "F1 step"]
+    print(f"  device_trace of one F1 step: {len(dev)} device kernels and copies, "
+          f"{sum(e.time_range.elapsed_us() for e in dev) / 1e3:.3f} device ms, span 'F1 step' "
+          f"recorded {len(spans)} time(s)")
+    check(len(spans) >= 1, "F4: the annotate span is missing from the trace")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1645,6 +1944,14 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f1 = phase_f1(b_ms)
+        seconds["F1"] = time.perf_counter() - t0
+        for name, phase in (("F2", phase_f2), ("F3", phase_f3), ("F4", lambda: phase_f4(f1))):
+            t0 = time.perf_counter()
+            phase()
+            seconds[name] = time.perf_counter() - t0
+        del f1
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

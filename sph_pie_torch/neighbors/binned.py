@@ -49,7 +49,8 @@ class BinnedGrid:
     axis_order: tuple[int, ...] = ()  # grid axis g -> spatial axis
     n_boundary: int = 0        # trailing compact rows that are frozen
                                # boundary (ghost) particles
-    periodic: tuple[bool, ...] = ()  # per GRID axis; not ported yet
+    periodic: tuple[bool, ...] = ()  # per GRID axis: wrapped ids, ghost
+                                     # images (wrap_ghosts), period dims*cell
 
     @property
     def dim(self) -> int:
@@ -158,16 +159,12 @@ class BinnedState:
     sim_time: torch.Tensor  # [] simulated seconds since bin_state
 
 
-def _require_nonperiodic(grid: BinnedGrid) -> None:
-    if any(grid.periodic):
-        raise NotImplementedError("periodic axes are not ported yet")
-
-
 def _cell_ids(grid: BinnedGrid, pos: torch.Tensor, valid: torch.Tensor):
     """Padded-grid flat cell id per row; invalid rows -> num_cells.
 
-    Penetrators are clipped into the edge ring of the interior."""
-    _require_nonperiodic(grid)
+    Non-periodic axes clip penetrators into the edge ring of the interior;
+    periodic axes wrap them modulo the interior width (Python-style, as
+    ``jnp.mod``), so a particle leaving one side bins on the other."""
     dev = pos.device
     order = grid.axis_order or tuple(range(grid.dim))
     pos_g = pos[:, list(order)]  # spatial columns permuted into grid order
@@ -177,10 +174,37 @@ def _cell_ids(grid: BinnedGrid, pos: torch.Tensor, valid: torch.Tensor):
     cell = torch.tensor(grid.cell_size, dtype=pos.dtype, device=dev)
     coords = torch.floor((pos_g - origin) / cell).to(torch.int32)
     hi = torch.tensor(grid.padded_dims, dtype=torch.int32, device=dev) - 2
-    coords = torch.minimum(torch.clamp(coords + 1, min=1), hi)
+    clipped = torch.minimum(torch.clamp(coords + 1, min=1), hi)
+    if any(grid.periodic):
+        dims = torch.tensor(grid.dims, dtype=torch.int32, device=dev)
+        per = torch.tensor(grid.periodic, dtype=torch.bool, device=dev)
+        coords = torch.where(per, torch.remainder(coords, dims) + 1, clipped)
+    else:
+        coords = clipped
     strides = torch.tensor(grid.strides, dtype=torch.int32, device=dev)
     cid = (coords * strides).sum(-1, dtype=torch.int32)
     return torch.where(valid, cid, grid.num_cells)
+
+
+def _fold_periodic(grid: BinnedGrid, pos: torch.Tensor) -> torch.Tensor:
+    """Positions folded into the primary box on periodic axes.
+
+    Applied at bin time only: between rebins a particle may drift up to
+    skin/2 past the seam, which the wrapped cell ids and the ghost images
+    still cover, and continuous positions keep the drift check exact."""
+    if not any(grid.periodic):
+        return pos
+    order = grid.axis_order or tuple(range(grid.dim))
+    cols = []
+    for s_axis in range(grid.dim):
+        g_axis = order.index(s_axis)
+        x = pos[:, s_axis]
+        if grid.periodic[g_axis]:
+            o = grid.origin[g_axis]
+            L = grid.dims[g_axis] * grid.cell_size
+            x = o + torch.remainder(x - o, L)
+        cols.append(x)
+    return torch.stack(cols, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,9 +234,12 @@ def sort_rows(
     The sort is stable, so within a cell rows keep their input order and an
     overfull cell drops its highest-ranked rows, exactly as the reference's
     stable multi-operand sort does. A ``vel`` or ``density`` of None is
-    not carried: the rows then hold only the columns given."""
+    not carried: the rows then hold only the columns given. Positions are
+    folded into the primary box on periodic axes first (``_fold_periodic``):
+    the rows carry the folded positions."""
     n, dev = pos.shape[0], pos.device
     C, cap, S = grid.num_cells, grid.cap, grid.num_slots
+    pos = _fold_periodic(grid, pos)
     cid = _cell_ids(grid, pos, valid)
     scid, perm = torch.sort(cid, stable=True)
     cols = [pos] + ([vel] if vel is not None else [])
@@ -346,6 +373,95 @@ def bin_state(
         ),
         density=dens,
     )
+
+
+def axis_vector(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small per-axis tensor of Python values, made on ``device`` by fills:
+    a tensor copied from the host (``torch.tensor`` of a list, or an item
+    assignment) would make the host wait for the card."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
+
+
+def _wrap_axis(
+    grid: BinnedGrid, x: torch.Tensor, axis: int, offset: torch.Tensor | None
+) -> torch.Tensor:
+    """x: flat [S, ...] -> a new tensor whose two ghost planes along grid
+    ``axis`` hold the opposite interior edge planes; ``offset`` (a spatial
+    [dim] vector) is subtracted from the low image and added to the high
+    one, or None."""
+    pd = grid.padded_dims
+    lead = math.prod(pd[:axis])
+    tail = math.prod(pd[axis + 1 :]) * grid.cap
+    shape = (lead, pd[axis], tail) + tuple(x.shape[1:])
+    out = x.clone(memory_format=torch.contiguous_format)
+    src, dst = x.reshape(shape), out.view(shape)
+    lo_img, hi_img = src[:, -2:-1], src[:, 1:2]  # high edge -> low ghost, and back
+    if offset is not None:
+        lo_img, hi_img = lo_img - offset, hi_img + offset
+    dst[:, :1] = lo_img
+    dst[:, -1:] = hi_img
+    return out
+
+
+def wrap_ghost_fields(
+    grid: BinnedGrid,
+    fields: dict[str, torch.Tensor],
+    offset_fields: tuple[str, ...] = ("pos", "bin_pos"),
+) -> dict[str, torch.Tensor]:
+    """Field-level ghost wrap: name -> flat [S, ...] tensors, returned as new
+    tensors (the inputs are not written). Fields named in ``offset_fields``
+    get the +-L spatial image offset; the rest are copied verbatim. Axis by
+    axis, so that corners compose."""
+    if not any(grid.periodic):
+        return dict(fields)
+    order = grid.axis_order or tuple(range(grid.dim))
+    out = dict(fields)
+    for g_axis, per in enumerate(grid.periodic):
+        if not per:
+            continue
+        s_axis = order[g_axis]
+        length = grid.dims[g_axis] * grid.cell_size
+        for k, x in out.items():
+            off = None
+            if k in offset_fields:
+                vec = [length if a == s_axis else 0.0 for a in range(grid.dim)]
+                off = axis_vector(vec, x.dtype, x.device)
+            out[k] = _wrap_axis(grid, x, g_axis, off)
+    return out
+
+
+def wrap_ghosts(grid: BinnedGrid, b: BinnedState) -> BinnedState:
+    """Refresh the ghost-border cells of periodic axes with images of the
+    opposite interior edge (positions offset by the domain length).
+
+    Called after every rebin check and before the pair sums. ``bin_pos``
+    carries the offset too, else the drift check would see a phantom
+    domain-length drift on every populated ghost slot. ``vel``, ``mass``,
+    ``valid``, ``owner`` and ``density`` are copied verbatim: ghost slots
+    are valid, so they move and count in the step's bounds like their
+    sources."""
+    if not any(grid.periodic):
+        return b
+    return replace(
+        b,
+        **wrap_ghost_fields(
+            grid,
+            {
+                "pos": b.pos,
+                "bin_pos": b.bin_pos,
+                "vel": b.vel,
+                "mass": b.mass,
+                "valid": b.valid,
+                "owner": b.owner,
+                "density": b.density,
+            },
+        ),
+    )
+
+
+def halo_cells(grid: BinnedGrid) -> int:
+    """Cells of halo each side a local fold needs (= max slab reach + 1)."""
+    return max(abs(s) for s in grid.slab_shifts()) + 1
 
 
 def frozen_mask(grid: BinnedGrid, b: BinnedState) -> torch.Tensor:

@@ -127,6 +127,7 @@ def block_scene(
     bcap: int | None = None,
     skin_frac: float = 0.25,
     wall_layers: int = 0,
+    build_state: bool = True,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
     **param_overrides,
@@ -134,7 +135,9 @@ def block_scene(
     """Generic block-of-fluid scene in an AABB domain.
 
     ``wall_layers`` > 0 adds that many shells of frozen ghost particles
-    outside every face except the top."""
+    outside every face except the top. ``build_state=False`` makes no
+    lattice: the state is an all-inactive one of the lattice's size (shape
+    math for memory budgets; ``device="meta"`` then allocates nothing)."""
     lo, hi = domain
     h = h_over_dx * dx
     rest_density = float(param_overrides.pop("rest_density", 1000.0))
@@ -168,10 +171,17 @@ def block_scene(
         # Explicit override: 8-granular rounding only; overflow is counted
         # at runtime (BinnedState.overflow).
         bcap = max(8, (int(bcap) + 7) // 8 * 8)
-    pos = lattice_block(fluid_lo, fluid_hi, dx)
-    st = state_lib.from_positions(
-        pos, capacity=capacity, mass=mass, dtype=dtype, device=device
-    )
+    if build_state:
+        pos = lattice_block(fluid_lo, fluid_hi, dx)
+        st = state_lib.from_positions(
+            pos, capacity=capacity, mass=mass, dtype=dtype, device=device
+        )
+    else:
+        # lattice_block's sites per axis: lo + dx/2, lo + 3dx/2, ... < hi
+        n_sites = math.prod(
+            len(np.arange(l + 0.5 * dx, h_, dx)) for l, h_ in zip(fluid_lo, fluid_hi)
+        )
+        st = state_lib.allocate(capacity or n_sites, dim, dtype, device)
     boundary = None
     n_boundary = 0
     if wall_layers > 0:
@@ -322,4 +332,67 @@ def dam_break_3d(
         dtype=dtype,
         device=device,
         **overrides,
+    )
+
+
+def dam_break_3d_periodic(
+    n_target: int = 50_000,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cuda",
+) -> Scene:
+    """3D dam break in a channel periodic along y (the cross-flow axis).
+
+    The fluid block spans the full y extent, so the seam carries pair
+    interactions from the first step. The y length is snapped to a whole
+    number of cells (a periodic axis must tile cells: the ghost images are
+    offset by dims * cell). Gravity on z, collapse along x; x and z keep
+    their penalty walls, y has none (the engine masks it)."""
+    vol = 0.3 * 0.4 * 0.6
+    dx = (vol / n_target) ** (1.0 / 3.0)
+    h = 2.0 * dx
+    skin_frac = 0.40
+    cell = h * (1.0 + skin_frac)
+    ny = max(3, int(round(0.4 / cell)))
+    ly = ny * cell * (1.0 - 1e-7)  # epsilon under: ceil(ly/cell) == ny
+    lo, hi = [0.0, 0.0, 0.0], [1.0, ly, 0.75]
+    rest_density = 1000.0
+    sound_speed = 40.0
+    params = make_params(
+        dim=3,
+        h=h,
+        dt=0.25 * h / sound_speed,
+        rest_density=rest_density,
+        sound_speed=sound_speed,
+        viscosity=0.05,
+        xsph_eps=0.05,
+        surface_tension=0.25,
+        bound_min=lo,
+        bound_max=hi,
+        dtype=dtype,
+        device=device,
+    )
+    pos = lattice_block([0.0, 0.0, 0.0], [0.3, ly, 0.6], dx)
+    state = state_lib.from_positions(
+        pos,
+        capacity=pos.shape[0],
+        mass=lattice_mass(3, h, dx, rest_density),
+        dtype=dtype,
+        device=device,
+    )
+    bgrid = nb.binned_grid_from_bounds(
+        lo,
+        hi,
+        h=h,
+        cap=40,
+        skin_frac=skin_frac,
+        max_particles=state.capacity,
+        periodic=(False, True, False),
+    )
+    assert bgrid.dims[1] == ny, (bgrid.dims, ny)
+    return Scene(
+        name="dam_break_3d_periodic",
+        params=params,
+        gspec=grid_from_bounds(lo, hi, cell_size=h, cap=_default_cap(3, h, dx)),
+        bgrid=bgrid,
+        state=state,
     )

@@ -34,7 +34,7 @@ from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
-from sph_pie_torch.solvers.wcsph_binned import maybe_rebin
+from sph_pie_torch.solvers.wcsph_binned import maybe_rebin, wall_axes
 from sph_pie_torch.utils.struct import replace
 
 # The tensor fields of PbfParams, in declaration order (convert.py walks them).
@@ -292,9 +292,13 @@ def step(
     b: nb.BinnedState,
     obstacles=None,
 ) -> nb.BinnedState:
-    """One PBF step in binned space (see the module docstring)."""
-    if any(grid.periodic):
-        raise NotImplementedError("periodic axes are not ported yet")
+    """One PBF step in binned space (see the module docstring).
+
+    On a periodic grid every rebin check is followed by ``wrap_ghosts``,
+    walls and the box projection act on the wall axes only, and the final
+    displacement is folded to its minimum image: a rebin folds a
+    seam-crossing x* into the primary box while the step-start position
+    (stash or ride payload, unoffset in the ghosts) stays continuous."""
     ride = pbf.epilogue == "ride"
     if not ride:
         # Owner-indexed stashes, taken before the entry rebin: a fired
@@ -303,10 +307,22 @@ def step(
         pos0c = b.pos[safe]       # [K, dim] step-start positions
         rho_prev_c = b.density[safe]  # previous step's final density
 
-    b = maybe_rebin(grid, b, carry_density=ride)
+    periodic = any(grid.periodic)
+    walls = wall_axes(grid)
+
+    def rebin_check(bb, **kw):
+        bb = maybe_rebin(grid, bb, **kw)
+        return nb.wrap_ghosts(grid, bb) if periodic else bb
+
+    b = rebin_check(b, carry_density=ride)
+    if periodic:
+        wall_mask = nb.axis_vector(walls, torch.bool, b.pos.device)[None, :]
 
     def clip_box(x):
-        return torch.clamp(x, params.bound_min, params.bound_max)
+        """Project into the AABB on wall axes only (periodic axes drift
+        freely; the bin-time fold wraps them)."""
+        c = torch.clamp(x, params.bound_min, params.bound_max)
+        return torch.where(wall_mask, c, x) if periodic else c
 
     def fmask(bb):
         return (bb.valid & ~nb.frozen_mask(grid, bb))[:, None]
@@ -315,7 +331,7 @@ def step(
 
     # Predict
     acc = torch.zeros_like(b.pos) + params.gravity
-    acc = acc + boundary_accel(params, b.pos, b.vel)
+    acc = acc + boundary_accel(params, b.pos, b.vel, walls)
     if obstacles is not None:
         acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
     vel = torch.where(valid, b.vel + params.dt * acc, 0.0)
@@ -334,7 +350,7 @@ def step(
 
     proj_cap = torch.clamp(pbf.proj_cap_h * params.h, max=0.5 * grid.skin)
     for _ in range(pbf.iters):
-        b = maybe_rebin(grid, b, light=not ride, carry_density=ride)
+        b = rebin_check(b, light=not ride, carry_density=ride)
         v = fmask(b)
         fields = {**nb._planar("p", b.pos), "mass": b.mass}
         lam, _ = _lambda_fold(params, pbf, grid, fields)
@@ -344,7 +360,7 @@ def step(
         x = clip_box(b.pos + dx)
         b = replace(b, pos=torch.where(v, x, b.pos), travel=b.travel + _max_norm(dx))
 
-    b = maybe_rebin(grid, b, light=not ride, carry_density=ride)
+    b = rebin_check(b, light=not ride, carry_density=ride)
     valid = fmask(b)
     x_star = b.pos
     if ride:
@@ -357,7 +373,20 @@ def step(
     # for rows that have none yet).
     m_rho = b.mass / torch.where(rho_prev > 0, rho_prev, params.rest_density)
 
-    new_vel = torch.where(valid, (x_star - pos0) / params.dt, 0.0)
+    disp = x_star - pos0
+    if periodic:
+        # Minimum image on periodic axes (period dims * cell_size).
+        order = grid.axis_order or tuple(range(grid.dim))
+        lengths = [
+            grid.dims[order.index(sa)] * grid.cell_size
+            if grid.periodic[order.index(sa)]
+            else 0.0
+            for sa in range(grid.dim)
+        ]
+        L = nb.axis_vector(lengths, disp.dtype, disp.device)[None, :]
+        safe_L = torch.where(L > 0, L, 1.0)
+        disp = torch.where(L > 0, disp - L * torch.round(disp / safe_L), disp)
+    new_vel = torch.where(valid, disp / params.dt, 0.0)
     new_vel = clamp_speed(params, new_vel)
 
     floor = 1e-6 * params.rest_density

@@ -3,7 +3,8 @@
 Same physics, constants and update order as the reference's
 ``solvers/wcsph_binned.py``:
 
-  1. ``maybe_rebin`` (lazy Verlet-skin trigger);
+  1. ``maybe_rebin`` (lazy Verlet-skin trigger), then on a periodic grid
+     ``wrap_ghosts`` (the ghost cells take the opposite edge's images);
   2. density (``neighbors/density.py``), then the Tait EOS;
   3. forces (``neighbors/forces.py``) plus gravity, the wall penalty and
      the obstacle penalty (``scenes/obstacles.accel``);
@@ -58,6 +59,15 @@ def maybe_rebin(
     return replace(b, travel=d)
 
 
+def wall_axes(grid: nb.BinnedGrid) -> tuple[bool, ...] | None:
+    """Per SPATIAL axis: True where the domain has walls (not periodic);
+    None on a grid without periodic axes."""
+    if not any(grid.periodic):
+        return None
+    order = grid.axis_order or tuple(range(grid.dim))
+    return tuple(not grid.periodic[order.index(sa)] for sa in range(grid.dim))
+
+
 @torch.no_grad()
 def step(
     params: FluidParams,
@@ -69,17 +79,18 @@ def step(
 
     ``obstacles`` (``scenes.obstacles.Obstacles``) add their penalty at the
     clock before it advances, over every slot; the move mask drops empty
-    slots."""
-    if any(grid.periodic):
-        raise NotImplementedError("periodic axes are not ported yet")
+    slots. Periodic axes have no wall: their ghost planes are refreshed
+    after the rebin check, and the ghost slots move with the rest."""
     b = maybe_rebin(grid, b)
+    if any(grid.periodic):
+        b = nb.wrap_ghosts(grid, b)
 
     rho = density(params, grid, b)
     b = replace(b, density=rho, pressure=eos.tait_pressure(params, rho))
 
     acc, xsph = forces(params, grid, b)
     acc = acc + params.gravity
-    acc = acc + boundary_accel(params, b.pos, b.vel)
+    acc = acc + boundary_accel(params, b.pos, b.vel, wall_axes(grid))
     if obstacles is not None:
         acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
 

@@ -14,6 +14,7 @@ from sph_pie_torch.core import params, state
 from sph_pie_torch.micro import center_slab
 from sph_pie_torch.neighbors import runs
 from sph_pie_torch.scenes import builders, config, emitter, obstacles
+from sph_pie_torch.utils import checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -21,6 +22,7 @@ ENTRY_POINTS = {
     "block_scene": builders.block_scene,
     "dam_break_2d": builders.dam_break_2d,
     "dam_break_3d": builders.dam_break_3d,
+    "dam_break_3d_periodic": builders.dam_break_3d_periodic,
     "emitter_2d": builders.emitter_2d,
     "make_params": params.make_params,
     "allocate": state.allocate,
@@ -31,6 +33,7 @@ ENTRY_POINTS = {
     "no_emitter": emitter.no_emitter,
     "scene_from_spec": config.scene_from_spec,
     "load_scene_file": config.load_scene_file,
+    "load_state": checkpoint.load_state,
 }
 
 
@@ -48,6 +51,7 @@ def test_default_device_without_a_card_raises():
 
 
 SCENE_CALLS = {
+    "dam_break_3d_periodic": lambda: builders.dam_break_3d_periodic(2000),
     "emitter_2d": lambda: builders.emitter_2d(512),
     "obstacles.make": lambda: obstacles.make(2, spheres=[([0.5, 0.5], 0.1)]),
     "plan_stream": lambda: emitter.plan_stream(

@@ -150,8 +150,13 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_unported_features_raise():
-    """Periodic grids are not ported yet; obstacles are (a step with an
-    empty obstacle set is the step without one)."""
+    """Periodic grids and obstacles are ported: a step with an empty
+    obstacle set is the step without one, and a grid marked periodic along
+    x, whose edge planes the 2-cell margin keeps empty (no images, no wall
+    contact yet), steps exactly as the walled grid but for the positions
+    of its empty ghost slots, which hold the +-L images of empty slots as
+    in the reference. The periodic physics is held in
+    ``tests/test_torch_periodic.py``."""
     from sph_pie_torch.scenes import obstacles
 
     s = tb.dam_break_2d(200, device="cpu")
@@ -160,5 +165,10 @@ def test_unported_features_raise():
     plain = tw.step(s.params, s.bgrid, b)
     assert all(torch.equal(getattr(with_empty, k), getattr(plain, k)) for k in vars(plain))
     periodic = dataclasses.replace(s.bgrid, periodic=(False, True))
-    with pytest.raises(NotImplementedError, match="periodic"):
-        tw.step(s.params, periodic, b)
+    got = tw.step(s.params, periodic, b)
+    v = plain.valid[:, None]
+    for k in vars(plain):
+        a, want = getattr(got, k), getattr(plain, k)
+        if k in ("pos", "bin_pos"):
+            a, want = torch.where(v, a, 0.0), torch.where(v, want, 0.0)
+        assert torch.equal(a, want), k
