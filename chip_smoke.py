@@ -106,6 +106,22 @@ float32. F4 checkpoints F1's state, resumes 10 steps from the file and from
 memory (bit for bit), rotates a ``CheckpointManager``, times F1's step
 with ``profiling.StepTimer`` and traces one with ``device_trace``.
 
+Phase G drives ``parallel/``: spatial shards of the cells on a mesh inside
+this process (one card holds them all). G1 runs Phase B's scene on 4
+shards through the halo step and the sharded step (5 warm + 20 timed
+steps each, then 225 more through the flow's first rebin), with the
+launch counters reset just before and read just after (``density.cu`` and
+``forces.cu`` once a shard a step, on each shard's home range; ``expand.cu``
+for the binning and each rebin); it prints ms/step beside Phase B's, the
+exchanges' time, rebins, host syncs and peak memory, holds the result
+against the single card (bit for bit, and in owner order), each shard's kernels
+against their plain twins, a rebin over the mesh against the single
+card's, and times the step with its exchanges and then its pair kernels
+taken out. G2 runs the balanced step on 8 shards (density and positions
+against the single card), G3 steps the 16M dam break's grid geometry on 8
+shards, G4 runs ``dryrun_multichip(8)``, and G5 a process group on NCCL
+of one rank per card, in this process, against the in-process mesh.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. On success
 the line before the last is a JSON object with one entry per kernel (its
@@ -120,7 +136,9 @@ and an empty slot is known by its mass alone.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -195,6 +213,20 @@ GATHER_F32_ATOL = 1e-4  # F3: f32 max |dpos| after 200 steps, card vs CPU: the
                         # card's reductions sum in another order, 20x Phase A's
                         # 10 steps, so 10x its bound
 F4_RESUME = 10        # F4: steps resumed from a checkpoint of F1's state
+G_N = 1_000_000       # G1, G2: dam_break_3d(1M), Phase B's scene
+G_SHARDS = 4          # G1: 267,812 cells, 66,953 a shard
+G_WARM, G_STEPS = 5, 20  # G1: as one rep of Phase B, timed
+G_MORE = 225          # G1: then on, untimed, through the flow's first rebins
+G_BAL_SHARDS = 8      # G2, G3, G4: BASELINE config #5's 8-way split
+G_BAL_STEPS = 5       # G2: the balanced step
+G16_STEPS = 2         # G3: steps of the 16M geometry
+G_ABLATE_STEPS, G_ABLATE_ROUNDS = 10, 3  # G1: steps of each ablated step, rounds
+G_TRAJ_ATOL = 1e-5    # G1, G2: f32 max |dpos| against the single card in owner
+                      # order: a rebin on another step (the halo step's
+                      # one-stage trigger) reorders the candidates of the
+                      # sums, a rounding-level change; F2's bound
+G_DENSITY_RTOL = 1e-5  # G2: balanced density against the single card, f32;
+                       # the reference's own bar (tests/test_halo.py)
 
 # The least time of a kernel's work (bound_ms): the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
@@ -1912,6 +1944,352 @@ def phase_f4(f1) -> None:
     check(len(spans) >= 1, "F4: the annotate span is missing from the trace")
 
 
+@functools.cache
+def card() -> str:
+    return card_line()
+
+
+def gline(text: str) -> None:
+    """A Phase G line, with the card's name and power limit."""
+    print(f"{text} [{card()}]", flush=True)
+
+
+def shard_kernels_vs_plain(mesh, params, grid, st) -> None:
+    """Each shard's ``density.cu`` and ``forces.cu`` on its home range
+    against their plain twins (the fold with the buffer's margins as
+    halos), after fresh exchanges, at Phase A's bounds."""
+    from sph_pie_torch.kernels import eos
+    from sph_pie_torch.neighbors.density import density, density_plain
+    from sph_pie_torch.neighbors.forces import forces, forces_plain
+    from sph_pie_torch.parallel import comm, sharding
+
+    live = [s for s in st.shards if s.cells]
+    comm.exchange(mesh, st.shards, ("pos", "vel", "mass"))
+    worst = [0.0, 0.0, 0.0]
+    for s in live:
+        v = sharding.view(s)
+        rk, rp = density(params, grid, v, home=s.home), density_plain(params, grid, v, home=s.home)
+        ok = v.valid
+        rel = ((rk - rp).abs()[ok] / rp[ok]).max().item() if bool(ok.any()) else 0.0
+        check(rel <= DENSITY_RTOL and torch.equal(rk[~ok], rp[~ok]),
+              f"shard {s.index}: density kernel disagrees ({rel:.3e})")
+        worst[0] = max(worst[0], rel)
+        inv_rho = 1.0 / rk
+        s.field("inv_rho").copy_(inv_rho)
+        s.field("pr2").copy_(eos.tait_pressure(params, rk) * inv_rho * inv_rho)
+        s.field("m_rho").copy_(s.field("mass") * inv_rho)
+    comm.exchange(mesh, st.shards, ("pr2", "m_rho", "inv_rho"))
+    for s in live:
+        v, per = sharding.view(s), (s.buf["inv_rho"], s.buf["pr2"], s.buf["m_rho"])
+        ak, xk = forces(params, grid, v, home=s.home, per_slot=per)
+        ap, xp = forces_plain(params, grid, v, home=s.home, per_slot=per)
+        ea, ex = scaled(ak, ap), scaled(xk, xp)
+        check(ea <= FORCES_ATOL and ex <= FORCES_ATOL,
+              f"shard {s.index}: forces kernel disagrees ({ea:.3e}, {ex:.3e})")
+        worst[1], worst[2] = max(worst[1], ea), max(worst[2], ex)
+    gline(f"  each of {len(live)} shards against its plain twin (margins as halos): density "
+          f"max rel {worst[0]:.3e} (bound {DENSITY_RTOL:g}), forces acc {worst[1]:.3e}, xsph "
+          f"{worst[2]:.3e} scaled (bound {FORCES_ATOL:g})")
+
+
+def owner_dpos(grid, got, want, capacity: int) -> float:
+    """max |dpos| of the active particles in owner order; active sets equal."""
+    from sph_pie_torch.neighbors import binned as nb
+
+    a, b = nb.unbin(grid, got, capacity), nb.unbin(grid, want, capacity)
+    check(torch.equal(a.active, b.active), "the active particles differ")
+    return (a.pos[b.active] - b.pos[b.active]).abs().max().item()
+
+
+def g_ablate(mesh, params, grid, st) -> None:
+    """Where a G1 step's time goes: steps of the sharded step as it runs,
+    with its exchanges made no-ops, and with its pair kernels' outputs
+    served from a cache, in turns (``G_ABLATE_ROUNDS`` rounds of
+    ``G_ABLATE_STEPS`` steps each; medians). Each ablation times the real
+    step with one phase taken out; the state is not checked afterwards."""
+    from sph_pie_torch.parallel import comm, sharding
+
+    step = sharding.sharded_step(mesh, params, grid)
+    real_exchange, real_kernels = comm.exchange, (sharding.density, sharding.forces)
+    cache = {}
+    for s in st.shards:
+        v = sharding.view(s)
+        per = (s.buf["inv_rho"], s.buf["pr2"], s.buf["m_rho"])
+        cache[("d", s.index)] = real_kernels[0](params, grid, v, home=s.home)
+        cache[("f", s.index)] = real_kernels[1](params, grid, v, home=s.home, per_slot=per)
+    index = {s.buf["pos"].data_ptr(): s.index for s in st.shards}
+
+    def no_exchange():
+        comm.exchange = lambda *a, **k: None
+
+    def no_kernels():
+        sharding.density = lambda p, g, v, home: cache[("d", index[v.pos.data_ptr()])]
+        sharding.forces = lambda p, g, v, home, per_slot: cache[("f", index[v.pos.data_ptr()])]
+
+    times = {"full": [], "no exchange": [], "no kernels": []}
+    for _ in range(G_ABLATE_ROUNDS):
+        for name, take_out in (("full", lambda: None), ("no exchange", no_exchange),
+                               ("no kernels", no_kernels)):
+            take_out()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(G_ABLATE_STEPS):
+                    st = step(st)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3 / G_ABLATE_STEPS)
+            finally:
+                comm.exchange = real_exchange
+                sharding.density, sharding.forces = real_kernels
+    med = {k: statistics.median(v) for k, v in times.items()}
+    gline(f"  G1 ablation, sharded step, {G_ABLATE_ROUNDS} rounds of {G_ABLATE_STEPS} steps in "
+          f"turns, medians: as it runs {med['full']:.3f} ms/step; without the exchanges "
+          f"{med['no exchange']:.3f} (they cost {med['full'] - med['no exchange']:.3f}); without "
+          f"density.cu and forces.cu {med['no kernels']:.3f} (they cost "
+          f"{med['full'] - med['no kernels']:.3f}); rounds "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v) for k, v in times.items()))
+
+
+def phase_g1(b_ms: float) -> None:
+    """The 1M flagship on a 4-shard in-process mesh, through the halo step
+    and the sharded step."""
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.parallel import balance, comm, halo, sharding
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.solvers import wcsph_binned
+
+    s = dam_break_3d(G_N, device="cuda")
+    g, n = s.bgrid, int(s.state.n_active())
+    mesh = comm.make_mesh(G_SHARDS, device="cuda")
+    hc = nb.halo_cells(g)
+    gline(f"== Phase G1: dam_break_3d({G_N:_}) on {G_SHARDS} in-process shards: {n} particles, "
+          f"{g.num_cells} cells ({g.num_cells // G_SHARDS} a shard), halo {hc} cells (strides "
+          f"{g.strides}), cap {g.cap}")
+    run = G_WARM + G_STEPS + G_MORE
+    ref = wcsph_binned.simulate(s.params, g, s.binned_state(), run)
+    budget = balance.hbm_budget_bytes(n, n_dev=G_SHARDS)
+    makers = {
+        "halo": lambda: halo.make_halo_step(mesh, s.params, g)[0],
+        "sharded": lambda: sharding.sharded_step(mesh, s.params, g),
+    }
+    for name, make in makers.items():
+        step = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs: list[int] = []
+        reset_launches()
+        # ---- the parallel path: counts start at 0 here ----
+        st = sharding.shard_binned(mesh, g, s.binned_state())
+        for _ in range(G_WARM):
+            st = step(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting_syncs(syncs):
+            for _ in range(G_STEPS):
+                st = step(st)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / G_STEPS
+        for _ in range(G_MORE):
+            st = step(st)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        # ---- counts read here ----
+        peak = torch.cuda.max_memory_allocated()
+        rebins = int(st.n_rebins)
+        ex_ms = sum(cuda_ms(lambda k=k: comm.exchange(mesh, st.shards, k), 10)
+                    for k in (("pos", "vel", "mass"), ("pr2", "m_rho", "inv_rho")))
+        gline(f" G1 {name}: ms/step {ms:.3f} over {G_STEPS} steps after {G_WARM} (Phase B "
+              f"{b_ms:.3f} in this run), then {G_MORE} more; exchanges {ex_ms:.3f} ms a step "
+              f"(CUDA events, both); rebins {rebins} in {run} steps, overflow "
+              f"{int(st.overflow)}; host syncs {sum(syncs) / G_STEPS:.3f}/step (timed steps)")
+        gline(f"  launches over {run} steps: {launches} (density == forces == {G_SHARDS} x "
+              f"{run}, expand == 1 + {rebins} rebins); peak device memory "
+              f"{peak / 2**30:.3f} GiB, hbm_budget_bytes per device "
+              f"{budget['per_device_gb']:.3f} GB ({budget['bytes_per_slot']} B a slot)")
+        check(launches["density"] == G_SHARDS * run and launches["forces"] == G_SHARDS * run,
+              f"G1 {name}: density/forces launches {launches} != {G_SHARDS} x {run}")
+        check(launches["expand"] == 1 + rebins and rebins >= 1,
+              f"G1 {name}: expand launches {launches}, rebins {rebins}")
+        out = sharding.gather_binned(mesh, g, st)
+        err = owner_dpos(g, out, ref, s.state.capacity)
+        same = all(torch.equal(getattr(out, k), getattr(ref, k))
+                   for k in ("pos", "vel", "density", "pressure", "owner"))
+        gline(f"  against the single card in owner order: max |dpos| {err:.3e} (bound "
+              f"{G_TRAJ_ATOL:g}); rebins single card {int(ref.n_rebins)}; every slot field "
+              f"bit-equal to the single card: {same}")
+        check(int(st.overflow) == 0 and err <= G_TRAJ_ATOL, f"G1 {name}: differs from one card")
+        check(bool(torch.isfinite(out.pos).all()), f"G1 {name}: non-finite position")
+        del out
+    shard_kernels_vs_plain(mesh, s.params, g, st)
+    t_gather = cuda_ms(lambda: sharding.gather_binned(mesh, g, st), 5)
+    b = sharding.gather_binned(mesh, g, st)
+    t_rebin = cuda_ms(lambda: nb.rebin(g, b), 5)
+    b2 = nb.rebin(g, b)
+    t_split = cuda_ms(lambda: sharding._put(mesh, st, b2), 5)
+    sharded_rebin = sharding._global(mesh, g, st, lambda bb: nb.rebin(g, bb))
+    back = sharding.gather_binned(mesh, g, sharded_rebin)
+    same = all(torch.equal(getattr(back, k), getattr(b2, k)) for k in sharding.SLOT_FIELDS)
+    gline(f"  a rebin over the mesh: gather {t_gather:.3f} + rebin {t_rebin:.3f} + split "
+          f"{t_split:.3f} ms (CUDA events, mean of 5); split back bit-equal to the single "
+          f"card's rebin: {same}")
+    check(same, "G1: the rebin over the mesh differs")
+    del b, b2, back
+    device_profile(lambda: sharding.sharded_simulate(mesh, s.params, g)(sharded_rebin, 5), 5,
+                   f"G1 sharded [{card()}]")
+    g_ablate(mesh, s.params, g, sharded_rebin)
+
+
+def phase_g2() -> None:
+    """The balanced step on 8 shards of the flagship, against the single card."""
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.parallel import balance, comm
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.solvers import wcsph_binned
+
+    s = dam_break_3d(G_N, device="cuda")
+    g = s.bgrid
+    mesh = comm.make_mesh(G_BAL_SHARDS, device="cuda")
+    b0 = s.binned_state()
+    counts = balance.cell_counts(g, b0).cpu().numpy()
+    c_cap = max(3 * g.num_cells // G_BAL_SHARDS, nb.halo_cells(g) + 1)
+    starts = balance.balanced_splits(counts, G_BAL_SHARDS, c_cap)
+    equal = np.linspace(0, g.num_cells, G_BAL_SHARDS + 1).astype(np.int64)
+    bf, bf_eq = balance.balance_factor(counts, starts), balance.balance_factor(counts, equal)
+    widths = np.diff(starts)
+    gline(f"== Phase G2: balanced step, dam_break_3d({G_N:_}) on {G_BAL_SHARDS} shards, c_cap "
+          f"{c_cap}: starts {starts.tolist()} (widths {widths.tolist()}, halo "
+          f"{nb.halo_cells(g)}); balance {bf:.3f}x, equal-cells {bf_eq:.3f}x")
+    init_fn, step_fn, finish_fn = balance.make_balanced_step(mesh, s.params, g, c_cap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # ---- the balanced path: counts start at 0 here ----
+    bs = init_fn(b0, starts)
+    t0 = time.perf_counter()
+    for _ in range(G_BAL_STEPS):
+        bs = step_fn(bs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / G_BAL_STEPS
+    launches = read_launches()
+    # ---- counts read here ----
+    live = int((widths > 0).sum())
+    out = finish_fn(bs, b0)
+    ref = wcsph_binned.simulate(s.params, g, b0, G_BAL_STEPS)
+    check(int(ref.n_rebins) == 0, "G2: the single card rebinned; slot comparison invalid")
+    v = ref.valid
+    rel = ((out.density - ref.density).abs()[v] / ref.density[v]).max().item()
+    err = (out.pos - ref.pos)[v].abs().max().item()
+    gline(f" G2: {ms:.3f} ms/step over {G_BAL_STEPS} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; launches {launches} (density == forces == {live} shards x {G_BAL_STEPS}); "
+          f"against the single card: density max rel {rel:.3e} (bound {G_DENSITY_RTOL:g}), "
+          f"max |dpos| {err:.3e} (bound {G_TRAJ_ATOL:g})")
+    check(launches["density"] == live * G_BAL_STEPS == launches["forces"],
+          f"G2: launches {launches}")
+    check(rel <= G_DENSITY_RTOL and err <= G_TRAJ_ATOL, "G2: balanced step differs from one card")
+
+
+def phase_g3() -> None:
+    """The 16M dam break's grid geometry, placed on 8 shards and stepped."""
+    from sph_pie_torch.parallel import balance, comm, dryrun, sharding
+    from sph_pie_torch.utils import membudget
+
+    mesh = comm.make_mesh(G_BAL_SHARDS, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, g, st = dryrun.state_16m(mesh)
+    built = time.perf_counter() - t0
+    reset_launches()
+    # ---- the 16M geometry's path: counts start at 0 here ----
+    step = sharding.sharded_step(mesh, params, g)
+    t0 = time.perf_counter()
+    for _ in range(G16_STEPS):
+        st = step(st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / G16_STEPS
+    launches = read_launches()
+    # ---- counts read here ----
+    peak = torch.cuda.max_memory_allocated()
+    out = sharding.gather_binned(mesh, g, st)
+    k = int(st.slot_of.shape[0])
+    full = membudget.dam_break_budget(16_000_000, n_devices=G_BAL_SHARDS)
+    hbm = balance.hbm_budget_bytes(16_000_000, n_dev=G_BAL_SHARDS)
+    gline(f"== Phase G3: the 16M geometry, grid {g.dims}, cap {g.cap}, {g.num_slots:,} slots, "
+          f"{k:,} particles (a 4 dx lattice) on {G_BAL_SHARDS} shards: built {built:.2f} s, "
+          f"{G16_STEPS} sharded steps at {ms:.3f} ms/step, launches {launches}, overflow "
+          f"{int(out.overflow)}")
+    gline(f"  peak device memory {peak / 2**30:.3f} GiB (one card holds all 8 shards, the whole "
+          f"state and its gathered copy); membudget.dam_break_budget(16M, 8) per card "
+          f"{full.total_bytes / 2**30:.3f} GiB at cap {40} ({full.row()}); hbm_budget_bytes "
+          f"per device {hbm['per_device_gb']:.3f} GB of {hbm['h100_hbm_gb']:g}")
+    check(launches["density"] == launches["forces"] == G_BAL_SHARDS * G16_STEPS,
+          f"G3: launches {launches}")
+    check(int(out.overflow) == 0 and bool(torch.isfinite(out.pos).all()), "G3: bad state")
+    check(full.fits and hbm["fits"], "G3: 16M does not fit the budget")
+
+
+def phase_g4() -> None:
+    """``dryrun_multichip(8)`` on the card, its lines tagged with the card."""
+    import io
+
+    from sph_pie_torch.parallel import dryrun
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = dryrun.dryrun_multichip(G_BAL_SHARDS, device="cuda")
+    gline(f"== Phase G4: dryrun_multichip({G_BAL_SHARDS}) on the card")
+    for line in buf.getvalue().splitlines():
+        gline(f"  {line}")
+    check(set(out) == {"balanced", "shape", "pbf", "periodic"}, "G4: a leg is missing")
+
+
+def phase_g5() -> None:
+    """The process-group mesh on NCCL, one rank per card, in this process
+    through a FileStore, against the in-process mesh."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from sph_pie_torch.parallel import comm, halo, sharding
+    from sph_pie_torch.scenes import dam_break_3d
+
+    world = torch.cuda.device_count()
+    check(world == 1, f"G5 runs one rank in this process; the machine has {world} cards")
+    s = dam_break_3d(G_N, device="cuda")
+    g = s.bgrid
+    d = tempfile.mkdtemp(dir=Path(__file__).resolve().parent, prefix=".chip_smoke_")
+    try:
+        store = dist.FileStore(os.path.join(d, "store"), world)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=world)
+        try:
+            mesh = comm.make_mesh(device="cuda", group=dist.group.WORLD)
+            step, _ = halo.make_halo_step(mesh, s.params, g)
+            st = sharding.shard_binned(mesh, g, s.binned_state())
+            for _ in range(5):
+                st = step(st)
+            got = sharding.gather_binned(mesh, g, st)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    local = comm.make_mesh(1, device="cuda")
+    step, _ = halo.make_halo_step(local, s.params, g)
+    st = sharding.shard_binned(local, g, s.binned_state())
+    for _ in range(5):
+        st = step(st)
+    want = sharding.gather_binned(local, g, st)
+    differ = [k for k in sharding.SLOT_FIELDS + ("travel", "sim_time")
+              if not torch.equal(getattr(got, k), getattr(want, k))]
+    gline(f"== Phase G5: NCCL process group, world size {world} (FileStore, this process), "
+          f"5 halo steps of dam_break_3d({G_N:_}): fields that differ from a 1-shard in-process "
+          f"mesh: {differ}. With one card no exchange crossed processes: the group's pmax and "
+          f"all_gather ran on one rank, a run across cards needs a machine with two or more")
+    check(not differ, "G5: the NCCL mesh differs from the in-process mesh")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1952,6 +2330,12 @@ def main() -> int:
             phase()
             seconds[name] = time.perf_counter() - t0
         del f1
+        for name, phase in (("G1", lambda: phase_g1(b_ms)), ("G2", phase_g2), ("G3", phase_g3),
+                            ("G4", phase_g4), ("G5", phase_g5)):
+            t0 = time.perf_counter()
+            phase()
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ import torch
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="sph_pie_torch",
-        description="The PyTorch + CUDA port of sph_pie_tpu. The reference's "
+        description="The PyTorch + CUDA SPH engine. The reference's "
         "'serve' and 'verify' commands are not ported yet: they wait for the "
         "port's service and trajectory-contract script.",
     )

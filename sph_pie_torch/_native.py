@@ -43,13 +43,14 @@ _SIGNATURES = {
         f"sph_expand_{t}": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P]
         for t in ("f32", "f64")
     },
+    # density and forces: ... S, cap, dim, s0, s1, first home cell, home cells
     **{
-        f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P]
+        f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _P]
         for t in ("f32", "f64")
     },
     **{
         f"sph_forces_{t}": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P
         ]
         for t in ("f32", "f64")
     },

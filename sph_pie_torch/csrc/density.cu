@@ -170,16 +170,23 @@ struct RunSmem {
 
 // MASK: ``valid`` masks the result and ``flags`` is unused; otherwise
 // ``valid`` is unused and ``flags`` are cell_flags' over the S / cap cells.
+// The home cells are [c_first, c_end) of the S / cap cells of pos and mass;
+// ``valid`` and ``rho`` hold the home slots only (their slot 0 is the first
+// home slot). Windows read all S slots, so a buffer [margin | home |
+// margin] gives its home slots what the whole grid would.
 template <typename T, int DIM, bool MASK>
 __global__ void __launch_bounds__(sph::kRunThreads)
 density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
              const bool* __restrict__ valid, const int* __restrict__ flags,
              const T* __restrict__ prm, T* __restrict__ rho,
-             long long S, int cap, int R, long long s0, long long s1) {
-  const long long c0 = static_cast<long long>(blockIdx.x) * R;
+             long long S, int cap, int R, long long s0, long long s1,
+             long long c_first, long long c_end) {
+  const long long c0 = c_first + static_cast<long long>(blockIdx.x) * R;
   const long long base = c0 * cap;  // first home slot
-  const int H = static_cast<int>(S - base < static_cast<long long>(R) * cap
-                                     ? S - base : static_cast<long long>(R) * cap);
+  const long long out0 = base - c_first * cap;  // its index in valid and rho
+  const long long left = (c_end - c0) * cap;
+  const int H = static_cast<int>(left < static_cast<long long>(R) * cap
+                                     ? left : static_cast<long long>(R) * cap);
   const T h2 = prm[0], c6 = prm[1], floor_rho = prm[2];
   const int ns = DIM == 2 ? 3 : 9;
   bool idle;  // nothing in the run can be non-zero; every warp finds it itself
@@ -197,7 +204,7 @@ density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
   }
   if (idle) {  // 0, floored
     const T out = T(0) < floor_rho ? floor_rho : T(0);
-    for (int i = threadIdx.x; i < H; i += blockDim.x) rho[base + i] = out;
+    for (int i = threadIdx.x; i < H; i += blockDim.x) rho[out0 + i] = out;
     return;
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -313,17 +320,18 @@ density_runs(const T* __restrict__ pos, const T* __restrict__ mass,
     const int r = sm.hidx[i];
     T acc;
     if (MASK) {
-      acc = r >= 0 && valid[base + i] ? sm.hacc[r] : T(0);
+      acc = r >= 0 && valid[out0 + i] ? sm.hacc[r] : T(0);
     } else {  // an empty slot without a record shares its cell's
       acc = sm.hacc[r >= 0 ? r : sm.hidx[sm.rep[i / cap]]];
     }
-    rho[base + i] = acc < floor_rho ? floor_rho : acc;
+    rho[out0 + i] = acc < floor_rho ? floor_rho : acc;
   }
 }
 
 template <typename T, int DIM, bool MASK>
 cudaError_t go_runs(const T* p, const T* m, const bool* v, const int* flags, const T* c, T* out,
-                    long long S, int cap, long long s0, long long s1, cudaStream_t st) {
+                    long long S, int cap, long long s0, long long s1, long long c_first,
+                    long long n_home, cudaStream_t st) {
   const int run = sph::run_cells(cap);
   sph::Carve carve(nullptr);  // counts the bytes of the layout
   const RunSmem<T, DIM> layout(carve, run, cap);
@@ -331,9 +339,10 @@ cudaError_t go_runs(const T* p, const T* m, const bool* v, const int* flags, con
   const auto kernel = density_runs<T, DIM, MASK>;
   const cudaError_t err = sph::allow_smem(kernel, carve.off);
   if (err != cudaSuccess) return err;
-  const long long runs = (S / cap + run - 1) / run;
+  const long long runs = (n_home + run - 1) / run;
+  if (runs == 0) return cudaGetLastError();
   kernel<<<static_cast<unsigned>(runs), sph::kRunThreads, carve.off, st>>>(
-      p, m, v, flags, c, out, S, cap, run, s0, s1);
+      p, m, v, flags, c, out, S, cap, run, s0, s1, c_first, c_first + n_home);
   return cudaGetLastError();
 }
 
@@ -354,38 +363,48 @@ cudaError_t go_window(const T* p, const T* m, const T* c, int* flags, T* out, lo
   cell_flags<T><<<sph::blocks_for(S / kPer), sph::kThreads, 0, st>>>(m, flags, S, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return go_runs<T, DIM, false>(p, m, nullptr, flags, c, out, S, cap, s0, s1, st);
+  return go_runs<T, DIM, false>(p, m, nullptr, flags, c, out, S, cap, s0, s1, 0, S / cap, st);
 }
 
 template <typename T>
 int launch(const void* pos, const void* mass, const void* valid, const void* prm,
            void* rho, long long S, int cap, int dim, long long s0, long long s1,
-           void* stream) {
+           long long c_first, long long n_home, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto p = static_cast<const T*>(pos);
   const auto m = static_cast<const T*>(mass);
   const auto v = static_cast<const bool*>(valid);
   const auto c = static_cast<const T*>(prm);
   const auto out = static_cast<T*>(rho);
-  if (S == 0) return cudaGetLastError();
-  if (!sph::run_cap_ok(cap)) return cudaErrorInvalidValue;
-  if (dim == 2) return go_runs<T, 2, true>(p, m, v, nullptr, c, out, S, cap, s0, s1, st);
-  if (dim == 3) return go_runs<T, 3, true>(p, m, v, nullptr, c, out, S, cap, s0, s1, st);
+  if (S == 0 || n_home == 0) return cudaGetLastError();
+  if (!sph::run_cap_ok(cap) || c_first < 0 || n_home < 0 || (c_first + n_home) * cap > S)
+    return cudaErrorInvalidValue;
+  if (dim == 2)
+    return go_runs<T, 2, true>(p, m, v, nullptr, c, out, S, cap, s0, s1, c_first, n_home, st);
+  if (dim == 3)
+    return go_runs<T, 3, true>(p, m, v, nullptr, c, out, S, cap, s0, s1, c_first, n_home, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Home cells [c_first, c_first + n_home) of the S / cap cells of pos and
+// mass; valid and rho hold their n_home * cap slots. The whole grid is
+// c_first 0, n_home S / cap.
 extern "C" int sph_density_f32(const void* pos, const void* mass, const void* valid,
                                const void* prm, void* rho, long long S, int cap,
-                               int dim, long long s0, long long s1, void* stream) {
-  return launch<float>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, stream);
+                               int dim, long long s0, long long s1, long long c_first,
+                               long long n_home, void* stream) {
+  return launch<float>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, c_first, n_home,
+                       stream);
 }
 
 extern "C" int sph_density_f64(const void* pos, const void* mass, const void* valid,
                                const void* prm, void* rho, long long S, int cap,
-                               int dim, long long s0, long long s1, void* stream) {
-  return launch<double>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, stream);
+                               int dim, long long s0, long long s1, long long c_first,
+                               long long n_home, void* stream) {
+  return launch<double>(pos, mass, valid, prm, rho, S, cap, dim, s0, s1, c_first, n_home,
+                        stream);
 }
 
 extern "C" int sph_density_window_f32(const void* pos, const void* mass, const void* prm,

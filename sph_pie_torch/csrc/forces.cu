@@ -105,15 +105,17 @@ forces_runs(const T* __restrict__ pos, const T* __restrict__ vel,
             const T* __restrict__ m_rho, const T* __restrict__ inv_rho,
             const T* __restrict__ prm, T* __restrict__ acc_out,
             T* __restrict__ xsph_out, long long S, int cap, int R, long long s0,
-            long long s1) {
-  const long long c0 = static_cast<long long>(blockIdx.x) * R;
+            long long s1, long long c_first, long long c_end) {
+  const long long c0 = c_first + static_cast<long long>(blockIdx.x) * R;
   const long long base = c0 * cap;  // first home slot
-  const int H = static_cast<int>(S - base < static_cast<long long>(R) * cap
-                                     ? S - base : static_cast<long long>(R) * cap);
+  const long long out0 = base - c_first * cap;  // its row in acc and xsph
+  const long long left = (c_end - c0) * cap;
+  const int H = static_cast<int>(left < static_cast<long long>(R) * cap
+                                     ? left : static_cast<long long>(R) * cap);
   if (sph::warp_all_zero(mass + base, H)) {  // empty run: zeros
     for (int e = threadIdx.x; e < H * DIM; e += blockDim.x) {
-      acc_out[base * DIM + e] = T(0);
-      xsph_out[base * DIM + e] = T(0);
+      acc_out[out0 * DIM + e] = T(0);
+      xsph_out[out0 * DIM + e] = T(0);
     }
     return;
   }
@@ -256,15 +258,15 @@ forces_runs(const T* __restrict__ pos, const T* __restrict__ vel,
   __syncthreads();
   for (int e = threadIdx.x; e < H * DIM; e += blockDim.x) {
     const int r = sm.hidx[e / DIM], d = e % DIM;
-    acc_out[base * DIM + e] = r >= 0 ? sm.hacc[r * DIM + d] : T(0);
-    xsph_out[base * DIM + e] = r >= 0 ? sm.hxs[r * DIM + d] : T(0);
+    acc_out[out0 * DIM + e] = r >= 0 ? sm.hacc[r * DIM + d] : T(0);
+    xsph_out[out0 * DIM + e] = r >= 0 ? sm.hxs[r * DIM + d] : T(0);
   }
 }
 
 template <typename T, int DIM, bool COH, bool XSPH>
 cudaError_t go(const T* p, const T* v, const T* m, const T* pr2, const T* mr, const T* ir,
                const T* prm, T* acc, T* xsph, long long S, int cap, long long s0,
-               long long s1, cudaStream_t st) {
+               long long s1, long long c_first, long long n_home, cudaStream_t st) {
   const int run = sph::run_cells(cap);
   sph::Carve carve(nullptr);  // counts the bytes of the layout
   const RunSmem<T, DIM> layout(carve, run, cap);
@@ -272,9 +274,9 @@ cudaError_t go(const T* p, const T* v, const T* m, const T* pr2, const T* mr, co
   const auto kernel = forces_runs<T, DIM, COH, XSPH>;
   const cudaError_t err = sph::allow_smem(kernel, carve.off);
   if (err != cudaSuccess) return err;
-  const long long runs = (S / cap + run - 1) / run;
+  const long long runs = (n_home + run - 1) / run;
   kernel<<<static_cast<unsigned>(runs), sph::kRunThreads, carve.off, st>>>(
-      p, v, m, pr2, mr, ir, prm, acc, xsph, S, cap, run, s0, s1);
+      p, v, m, pr2, mr, ir, prm, acc, xsph, S, cap, run, s0, s1, c_first, c_first + n_home);
   return cudaGetLastError();
 }
 
@@ -282,9 +284,9 @@ template <typename T, int DIM>
 cudaError_t dispatch_terms(bool coh, bool xsph, const T* p, const T* v, const T* m,
                            const T* pr2, const T* mr, const T* ir, const T* prm, T* a,
                            T* x, long long S, int cap, long long s0, long long s1,
-                           cudaStream_t st) {
+                           long long c_first, long long n_home, cudaStream_t st) {
 #define SPH_FORCES_GO(COH, XSPH) \
-  go<T, DIM, COH, XSPH>(p, v, m, pr2, mr, ir, prm, a, x, S, cap, s0, s1, st)
+  go<T, DIM, COH, XSPH>(p, v, m, pr2, mr, ir, prm, a, x, S, cap, s0, s1, c_first, n_home, st)
   if (coh && xsph) return SPH_FORCES_GO(true, true);
   if (coh) return SPH_FORCES_GO(true, false);
   if (xsph) return SPH_FORCES_GO(false, true);
@@ -296,7 +298,8 @@ template <typename T>
 int launch(const void* pos, const void* vel, const void* mass, const void* pr2,
            const void* m_rho, const void* inv_rho, const void* prm, void* acc,
            void* xsph, long long S, int cap, int dim, long long s0, long long s1,
-           int use_cohesion, int use_xsph, void* stream) {
+           long long c_first, long long n_home, int use_cohesion, int use_xsph,
+           void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto p = static_cast<const T*>(pos);
   const auto v = static_cast<const T*>(vel);
@@ -307,33 +310,39 @@ int launch(const void* pos, const void* vel, const void* mass, const void* pr2,
   const auto c = static_cast<const T*>(prm);
   const auto a = static_cast<T*>(acc);
   const auto x = static_cast<T*>(xsph);
-  if (S == 0) return cudaGetLastError();
-  if (!sph::run_cap_ok(cap)) return cudaErrorInvalidValue;
+  if (S == 0 || n_home == 0) return cudaGetLastError();
+  if (!sph::run_cap_ok(cap) || c_first < 0 || n_home < 0 || (c_first + n_home) * cap > S)
+    return cudaErrorInvalidValue;
   if (dim == 2)
     return dispatch_terms<T, 2>(use_cohesion, use_xsph, p, v, m, q, mr, ir, c, a, x, S, cap,
-                                s0, s1, st);
+                                s0, s1, c_first, n_home, st);
   if (dim == 3)
     return dispatch_terms<T, 3>(use_cohesion, use_xsph, p, v, m, q, mr, ir, c, a, x, S, cap,
-                                s0, s1, st);
+                                s0, s1, c_first, n_home, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Home cells [c_first, c_first + n_home) of the S / cap cells of the inputs;
+// acc and xsph hold their n_home * cap slots. The whole grid is c_first 0,
+// n_home S / cap.
 extern "C" int sph_forces_f32(const void* pos, const void* vel, const void* mass,
                               const void* pr2, const void* m_rho, const void* inv_rho,
                               const void* prm, void* acc, void* xsph, long long S,
                               int cap, int dim, long long s0, long long s1,
-                              int use_cohesion, int use_xsph, void* stream) {
+                              long long c_first, long long n_home, int use_cohesion,
+                              int use_xsph, void* stream) {
   return launch<float>(pos, vel, mass, pr2, m_rho, inv_rho, prm, acc, xsph, S, cap,
-                       dim, s0, s1, use_cohesion, use_xsph, stream);
+                       dim, s0, s1, c_first, n_home, use_cohesion, use_xsph, stream);
 }
 
 extern "C" int sph_forces_f64(const void* pos, const void* vel, const void* mass,
                               const void* pr2, const void* m_rho, const void* inv_rho,
                               const void* prm, void* acc, void* xsph, long long S,
                               int cap, int dim, long long s0, long long s1,
-                              int use_cohesion, int use_xsph, void* stream) {
+                              long long c_first, long long n_home, int use_cohesion,
+                              int use_xsph, void* stream) {
   return launch<double>(pos, vel, mass, pr2, m_rho, inv_rho, prm, acc, xsph, S, cap,
-                        dim, s0, s1, use_cohesion, use_xsph, stream);
+                        dim, s0, s1, c_first, n_home, use_cohesion, use_xsph, stream);
 }

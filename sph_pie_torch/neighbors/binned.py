@@ -573,12 +573,54 @@ def slab_windows(grid: BinnedGrid, x: torch.Tensor) -> list[torch.Tensor]:
     ]
 
 
+def home_range(grid: BinnedGrid, rows: int, home: tuple[int, int] | None) -> tuple[int, int]:
+    """(first, count) home cells of a buffer of ``rows`` slots: ``home``, or
+    the whole grid when it is None (then the buffer must be the grid's S
+    slots). Raises on a range that does not lie in the buffer."""
+    if home is None:
+        if rows != grid.num_slots:
+            raise ValueError(f"a whole-grid buffer holds {grid.num_slots} slots, got {rows}")
+        return 0, grid.num_cells
+    first, count = int(home[0]), int(home[1])
+    if rows % grid.cap or first < 0 or count < 0 or (first + count) * grid.cap > rows:
+        raise ValueError(f"home cells [{first}, {first + count}) do not lie in a buffer of "
+                         f"{rows} slots at cap {grid.cap}")
+    return first, count
+
+
+def split_home(
+    grid: BinnedGrid, fields: dict[str, torch.Tensor], home: tuple[int, int]
+) -> tuple[dict[str, torch.Tensor], tuple[dict, dict]]:
+    """Buffer fields [rows, ...] -> (the home cells' rows, (lo, hi) halos of
+    ``halo_cells`` cells each side) for ``slab_fold(halo=, local_cells=)``.
+    Rows outside the buffer read as zeros, as past the grid's ends."""
+    cap, hc = grid.cap, halo_cells(grid)
+    first, count = home
+    local, lo, hi = {}, {}, {}
+    for k, x in fields.items():
+        rows = x.shape[0]
+
+        def rows_of(a, b):  # buffer rows [a, b), zeros outside [0, rows)
+            z = x.new_zeros((b - a,) + x.shape[1:])
+            s, e = max(a, 0), min(b, rows)
+            if e > s:
+                z[s - a : e - a] = x[s:e]
+            return z
+
+        local[k] = x[first * cap : (first + count) * cap]
+        lo[k] = rows_of((first - hc) * cap, first * cap)
+        hi[k] = rows_of((first + count) * cap, (first + count + hc) * cap)
+    return local, (lo, hi)
+
+
 def slab_fold(
     grid: BinnedGrid,
     fields: dict[str, torch.Tensor],
     pair_fn: PairFn,
     init: Sequence[torch.Tensor],
     every_slot: bool = False,
+    halo: tuple[dict, dict] | None = None,
+    local_cells: int | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Fold ``pair_fn`` over all neighbor slabs, in chunks of home cells.
 
@@ -604,19 +646,32 @@ def slab_fold(
     per call. ``every_slot`` makes every cell a home cell with all its
     rows; only ``density_window_plain`` sets it, because its reference
     (``pallas_density.density_pallas``) keeps a density on empty slots.
+
+    Shards (the reference's signature and meaning): with ``halo=(lo, hi)``
+    and ``local_cells``, ``fields`` and ``init`` hold the ``local_cells``
+    home cells of a contiguous range of the grid, and each halo dict holds
+    the ``halo_cells(grid) * cap`` rows of the cells just before (lo) and
+    just after (hi) them, in place of the zeros past the grid's ends. The hi
+    halo follows the last home cell, wherever the range ends.
     """
-    cap, C = grid.cap, grid.num_cells
+    cap = grid.cap
+    C = grid.num_cells if local_cells is None else int(local_cells)
     shifts = grid.slab_shifts()
-    blk = min(grid.block_cells or C, C)
-    padc = max(abs(s) for s in shifts) + 1  # zero cells on each side
+    blk = min(grid.block_cells or C, C) or 1
+    padc = max(abs(s) for s in shifts) + 1  # zero or halo cells on each side
     mass = fields["mass"]
     dev = mass.device
+    if mass.shape[0] != C * cap:
+        raise ValueError(f"slab_fold: fields hold {mass.shape[0]} rows, not {C} cells x {cap}")
 
-    def cells_view(x):
-        z = x.new_zeros((padc * cap,) + x.shape[1:])
-        return torch.cat([z, x, z]).view((C + 2 * padc, cap) + x.shape[1:])
+    def cells_view(k, x):
+        if halo is None:
+            lo = hi = x.new_zeros((padc * cap,) + x.shape[1:])
+        else:
+            lo, hi = halo[0][k], halo[1][k]
+        return torch.cat([lo, x, hi]).view((C + 2 * padc, cap) + x.shape[1:])
 
-    padded = {k: cells_view(v) for k, v in fields.items()}
+    padded = {k: cells_view(k, v) for k, v in fields.items()}
     if every_slot:
         cells = torch.arange(C, device=dev)
         depth = [cap] * -(-C // blk)

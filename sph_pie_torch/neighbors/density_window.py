@@ -121,7 +121,7 @@ def density_cap32(
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(
         "density", b.pos.dtype, b.pos, b.mass, b.valid, prm, rho, grid.num_slots,
-        grid.cap, grid.dim, s0, s1,
+        grid.cap, grid.dim, s0, s1, 0, grid.num_cells,
     )
     density_cap32.launches += 1
     return rho

@@ -16,6 +16,12 @@ are 0 on slots that are not valid. ``h`` is ``params.h``.
 of cells: ``neighbors/runs.py``) for CUDA tensors and runs
 ``forces_plain`` (the blocked slab fold) for CPU tensors; any other device
 raises.
+
+Both take ``home=(first, count)`` as ``neighbors/density.py`` does: the
+inputs span a buffer, ``valid`` and the results its home slots. A shard
+passes ``per_slot=(inv_rho, pr2, m_rho)`` over its buffer, exchanged with
+its neighbours; without it they are computed from ``b.density`` and
+``b.pressure``.
 """
 
 from __future__ import annotations
@@ -36,11 +42,16 @@ def _per_slot(b: nb.BinnedState):
 
 
 def forces_plain(
-    params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
+    params: FluidParams,
+    grid: nb.BinnedGrid,
+    b: nb.BinnedState,
+    home: tuple[int, int] | None = None,
+    per_slot: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """([S, dim] acc, [S, dim] xsph) by the one-sided slab fold."""
+    """([n, dim] acc, [n, dim] xsph) of the n home slots by the one-sided
+    slab fold."""
     dim, h = params.dim, params.h
-    inv_rho, pr2, m_rho = _per_slot(b)
+    inv_rho, pr2, m_rho = _per_slot(b) if per_slot is None else per_slot
 
     def pair(carry, hm, w):
         """Mask-free pair math: empty slots carry mass == 0 and m_rho == 0,
@@ -84,8 +95,16 @@ def forces_plain(
         "m_rho": m_rho,
         "inv_rho": inv_rho,
     }
-    zero = torch.zeros_like(b.mass)
-    out = nb.slab_fold(grid, fields, pair, (zero,) * (2 * dim))
+    first, count = nb.home_range(grid, b.pos.shape[0], home)
+    if home is None:
+        zero = torch.zeros_like(b.mass)
+        out = nb.slab_fold(grid, fields, pair, (zero,) * (2 * dim))
+    else:
+        local, halo = nb.split_home(grid, fields, (first, count))
+        zero = torch.zeros_like(local["mass"])
+        out = nb.slab_fold(
+            grid, local, pair, (zero,) * (2 * dim), halo=halo, local_cells=count
+        )
     live = b.valid[:, None]
     acc = torch.where(live, torch.stack(out[:dim], dim=-1), 0.0)
     xsph = torch.where(live, torch.stack(out[dim:], dim=-1), 0.0)
@@ -93,19 +112,24 @@ def forces_plain(
 
 
 def forces(
-    params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
+    params: FluidParams,
+    grid: nb.BinnedGrid,
+    b: nb.BinnedState,
+    home: tuple[int, int] | None = None,
+    per_slot: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``forces_plain`` on the CPU; the ``forces`` CUDA kernel on the card,
     which raises on a cap it cannot stage (``runs.check_staging``)."""
     if b.pos.device.type == "cpu":
-        return forces_plain(params, grid, b)
+        return forces_plain(params, grid, b, home, per_slot)
     if b.pos.device.type != "cuda":
         raise ValueError(f"forces: no kernel for device {b.pos.device}")
     dt, dev, dim = b.pos.dtype, b.pos.device, params.dim
-    S = grid.num_slots
-    if b.pos.shape != (S, dim) or b.vel.shape != (S, dim):
-        raise ValueError(f"forces: pos and vel must be [{S}, {dim}]")
-    inv_rho, pr2, m_rho = _per_slot(b)
+    S = b.pos.shape[0]
+    first, count = nb.home_range(grid, S, home)
+    if b.pos.shape != (S, dim) or b.vel.shape != (S, dim) or b.mass.shape != (S,):
+        raise ValueError(f"forces: pos and vel must be [{S}, {dim}], mass [{S}]")
+    inv_rho, pr2, m_rho = _per_slot(b) if per_slot is None else per_slot
     h = params.h
     prm = torch.stack(
         [
@@ -125,12 +149,12 @@ def forces(
         inv_rho=(inv_rho, None), prm=(prm, None),
     )
     runs.check_staging("forces", grid.cap, pos=b.pos, mass=b.mass)
-    acc = torch.empty((S, dim), dtype=dt, device=dev)
-    xsph = torch.empty((S, dim), dtype=dt, device=dev)
+    acc = torch.empty((count * grid.cap, dim), dtype=dt, device=dev)
+    xsph = torch.empty((count * grid.cap, dim), dtype=dt, device=dev)
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(
         "forces", dt, b.pos, b.vel, b.mass, pr2, m_rho, inv_rho, prm, acc,
-        xsph, S, grid.cap, dim, s0, s1, int(params.use_cohesion),
+        xsph, S, grid.cap, dim, s0, s1, first, count, int(params.use_cohesion),
         int(params.use_xsph),
     )
     forces.launches += 1

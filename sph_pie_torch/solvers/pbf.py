@@ -132,7 +132,7 @@ def _inv_r(r2: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(torch.clamp(r2, min=1e-12))
 
 
-def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields):
+def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=nb.slab_fold):
     """(lambda, rho) per slot from one slab fold over predicted positions.
 
     No per-pair divide or mask: the kernel cut-offs zero far pairs, d == 0
@@ -159,7 +159,7 @@ def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields):
         return (rho, grad_sq) + tuple(a + g for a, g in zip(grad_sum, gs))
 
     zero = torch.zeros_like(fields["mass"])
-    rho, grad_sq, *grad_sum = nb.slab_fold(grid, fields, pair, (zero,) * (2 + dim))
+    rho, grad_sq, *grad_sum = fold(grid, fields, pair, (zero,) * (2 + dim))
     # |sum grad|^2 + sum |grad|^2 (the CFM denominator), with 1/rho0^2 here
     inv_rho0 = 1.0 / rho0
     denom = grad_sq
@@ -172,7 +172,7 @@ def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields):
     return lam, rho
 
 
-def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields):
+def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=nb.slab_fold):
     """[S, dim] position corrections from the lambdas (``fields["lam"]``),
     with the artificial pressure -k h^2 (W / W(dq h))^n."""
     dim, h = params.dim, params.h
@@ -194,11 +194,11 @@ def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields):
         return tuple(c_k + (coef * d[k]).sum(2) for k, c_k in enumerate(carry))
 
     zero = torch.zeros_like(fields["mass"])
-    dxs = nb.slab_fold(grid, fields, pair, (zero,) * dim)
+    dxs = fold(grid, fields, pair, (zero,) * dim)
     return torch.stack(dxs, dim=-1) * (1.0 / rho0)
 
 
-def _density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho):
+def _density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho, fold=nb.slab_fold):
     """One fold for the density and the XSPH sum: (rho_raw, dv).
 
     ``m_rho`` is the Monaghan weight m_j / rho_j with rho_j the previous
@@ -220,11 +220,11 @@ def _density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho):
 
     fields = {**nb._planar("p", pos), **nb._planar("v", vel), "mass": mass, "m_rho": m_rho}
     zero = torch.zeros_like(mass)
-    rho, s0, *s1 = nb.slab_fold(grid, fields, pair, (zero,) * (2 + dim))
+    rho, s0, *s1 = fold(grid, fields, pair, (zero,) * (2 + dim))
     return rho, torch.stack(s1, dim=-1) - vel * s0[:, None]
 
 
-def _vorticity_fold(params: FluidParams, grid, pos, vel, mass, rho):
+def _vorticity_fold(params: FluidParams, grid, pos, vel, mass, rho, fold=nb.slab_fold):
     """omega_i = sum_j (m/rho)_j (v_j - v_i) x grad_i W_ij (spiky gradient):
     [S, 3] in 3D, the scalar z-curl [S, 1] in 2D."""
     dim, h = params.dim, params.h
@@ -250,11 +250,11 @@ def _vorticity_fold(params: FluidParams, grid, pos, vel, mass, rho):
 
     fields = {**nb._planar("p", pos), **nb._planar("v", vel), "mass": mass, "m_rho": m_rho}
     zero = torch.zeros_like(mass)
-    out = nb.slab_fold(grid, fields, pair, (zero,) * (3 if dim == 3 else 1))
+    out = fold(grid, fields, pair, (zero,) * (3 if dim == 3 else 1))
     return torch.stack(out, dim=-1)
 
 
-def _vorticity_force(params: FluidParams, grid, pos, mass, rho, omega):
+def _vorticity_force(params: FluidParams, grid, pos, mass, rho, omega, fold=nb.slab_fold):
     """f = N x omega, N = eta / |eta|, eta_i = sum_j (m/rho)_j |omega_j|
     grad_i W_ij (towards higher vorticity)."""
     dim, h = params.dim, params.h
@@ -271,7 +271,7 @@ def _vorticity_force(params: FluidParams, grid, pos, mass, rho, omega):
 
     fields = {**nb._planar("p", pos), "mass": mass, "m_rho": m_rho, "wmag": wmag}
     zero = torch.zeros_like(mass)
-    eta = torch.stack(nb.slab_fold(grid, fields, pair, (zero,) * dim), dim=-1)
+    eta = torch.stack(fold(grid, fields, pair, (zero,) * dim), dim=-1)
     n_hat = eta * _inv_r((eta * eta).sum(-1, keepdim=True))
     if dim == 3:
         return torch.linalg.cross(n_hat, omega, dim=-1)
@@ -291,8 +291,11 @@ def step(
     pbf: PbfParams,
     b: nb.BinnedState,
     obstacles=None,
+    fold=nb.slab_fold,
 ) -> nb.BinnedState:
-    """One PBF step in binned space (see the module docstring).
+    """One PBF step in binned space (see the module docstring). Every fold
+    goes through ``fold``, ``binned.slab_fold``'s signature
+    (``parallel.sharding.mesh_fold`` folds over a mesh of shards).
 
     On a periodic grid every rebin check is followed by ``wrap_ghosts``,
     walls and the box projection act on the wall axes only, and the final
@@ -353,8 +356,8 @@ def step(
         b = rebin_check(b, light=not ride, carry_density=ride)
         v = fmask(b)
         fields = {**nb._planar("p", b.pos), "mass": b.mass}
-        lam, _ = _lambda_fold(params, pbf, grid, fields)
-        dx = pbf.sor * _dx_fold(params, pbf, grid, {**fields, "lam": lam})
+        lam, _ = _lambda_fold(params, pbf, grid, fields, fold)
+        dx = pbf.sor * _dx_fold(params, pbf, grid, {**fields, "lam": lam}, fold)
         n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
         dx = torch.where(v, dx * torch.clamp(proj_cap / n, max=1.0), 0.0)
         x = clip_box(b.pos + dx)
@@ -391,7 +394,7 @@ def step(
 
     floor = 1e-6 * params.rest_density
     if params.use_xsph and not pbf.use_vorticity:
-        rho, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho)
+        rho, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
         rho = torch.maximum(torch.where(b.valid, rho, 0.0), floor)
         new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
         new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
@@ -399,12 +402,12 @@ def step(
         rho = density(params, grid, b)  # b.pos is x_star
         rho = torch.maximum(rho, floor)
         if pbf.use_vorticity:
-            omega = _vorticity_fold(params, grid, x_star, new_vel, b.mass, rho)
-            f_vort = _vorticity_force(params, grid, x_star, b.mass, rho, omega)
+            omega = _vorticity_fold(params, grid, x_star, new_vel, b.mass, rho, fold)
+            f_vort = _vorticity_force(params, grid, x_star, b.mass, rho, omega, fold)
             new_vel = new_vel + (pbf.vort_eps * params.dt) * torch.where(valid, f_vort, 0.0)
             new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
         if params.use_xsph:
-            _, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho)
+            _, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
             new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
             new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
 
@@ -418,8 +421,9 @@ def simulate(
     b: nb.BinnedState,
     n_steps: int,
     obstacles=None,
+    fold=nb.slab_fold,
 ) -> nb.BinnedState:
     """Roll ``n_steps`` steps."""
     for _ in range(int(n_steps)):
-        b = step(params, grid, pbf, b, obstacles)
+        b = step(params, grid, pbf, b, obstacles, fold)
     return b

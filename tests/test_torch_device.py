@@ -13,6 +13,7 @@ import torch
 from sph_pie_torch.core import params, state
 from sph_pie_torch.micro import center_slab
 from sph_pie_torch.neighbors import runs
+from sph_pie_torch.parallel import comm, dryrun
 from sph_pie_torch.scenes import builders, config, emitter, obstacles
 from sph_pie_torch.utils import checkpoint
 
@@ -34,6 +35,8 @@ ENTRY_POINTS = {
     "scene_from_spec": config.scene_from_spec,
     "load_scene_file": config.load_scene_file,
     "load_state": checkpoint.load_state,
+    "make_mesh": comm.make_mesh,
+    "dryrun_multichip": dryrun.dryrun_multichip,
 }
 
 
@@ -60,6 +63,8 @@ SCENE_CALLS = {
     "load_scene_file": lambda: config.load_scene_file(ROOT / "config" / "scene-faucet-2d.json"),
     "scene_from_spec": lambda: config.scene_from_spec(
         {"builder": "dam_break_2d", "builder_args": {"n_target": 200}}),
+    "make_mesh": lambda: comm.make_mesh(4),
+    "dryrun_multichip": lambda: dryrun.dryrun_multichip(8),
 }
 
 
