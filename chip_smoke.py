@@ -122,6 +122,25 @@ against the single card), G3 steps the 16M dam break's grid geometry on 8
 shards, G4 runs ``dryrun_multichip(8)``, and G5 a process group on NCCL
 of one rank per card, in this process, against the in-process mesh.
 
+Phase H drives the service (``sph_pie_torch/service/``) on the card. H1
+serves an ``App(device="cuda")`` on a port of localhost in this process,
+logs in, reads ``/api/health`` (it must name the card), submits a
+``dam_break_3d`` run with ``params {"n_target": 1000000}`` and executes 200
+steps with a step row every 50 over HTTP, with the launch counters reset
+just before and read just after: rows at 50, 100, 150 and 200 with
+995,328 active and overflow 0, ``density`` and ``forces`` launched 200
+times, ``expand`` at least once, and a final checkpoint that
+``load_state`` reads back; it prints the run's ms/step with the scene
+build and the checkpoint timed apart. It then runs a PBF run through
+``params.solver`` and holds the preview PNG of ``dam_break_2d`` against the
+same preview from an ``App(device="cpu")``. H2 runs ``python -m
+sph_pie_torch serve`` as a process (config port 0), reads its address line
+and its ``/api/health``, and terminates it. H3 runs ``python -m
+sph_pie_torch verify`` as a process on the card: the 4k / 1000-step float64
+trajectory contract against the native C++ oracle within 1e-3, overflow 0,
+1000 launches each of ``density`` and ``forces``. H1's launches are added
+to rows 1-3 of the kernels line.
+
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. On success
 the line before the last is a JSON object with one entry per kernel (its
@@ -227,6 +246,15 @@ G_TRAJ_ATOL = 1e-5    # G1, G2: f32 max |dpos| against the single card in owner
                       # sums, a rounding-level change; F2's bound
 G_DENSITY_RTOL = 1e-5  # G2: balanced density against the single card, f32;
                        # the reference's own bar (tests/test_halo.py)
+H_N = 1_000_000       # H1: dam_break_3d(1M) over HTTP, Phase B's scene
+H_STEPS, H_RECORD = 200, 50  # H1: steps executed, a step row every 50
+H_PBF_N, H_PBF_STEPS = 20_000, 10  # H1: a PBF run (params.solver), D2's size
+H_PREVIEW = 50        # H1: preview steps, dam_break_2d(2048), card App vs CPU App;
+                      # held at D2's u8 bound (U8_SHARE)
+H_POLL_S = 0.25       # H1: run status polls
+H_PASSWORD = "Str0ng-Passw0rd!"  # H1: the admin's password after the forced reset
+H_SERVE_TIMEOUT = 180  # H2: seconds to the address line
+H_VERIFY_TIMEOUT = 480  # H3: seconds for verify (engine + the O(N^2) oracle on the host)
 
 # The least time of a kernel's work (bound_ms): the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
@@ -1950,7 +1978,7 @@ def card() -> str:
 
 
 def gline(text: str) -> None:
-    """A Phase G line, with the card's name and power limit."""
+    """A line of Phases G and H, with the card's name and power limit."""
     print(f"{text} [{card()}]", flush=True)
 
 
@@ -2290,6 +2318,290 @@ def phase_g5() -> None:
     check(not differ, "G5: the NCCL mesh differs from the in-process mesh")
 
 
+class Client:
+    """JSON over HTTP with one session cookie (urllib: no dependency)."""
+
+    def __init__(self, base: str):
+        self.base, self.cookie = base, None
+
+    def raw(self, method: str, path: str, body=None, timeout: float = 120) -> tuple[int, bytes]:
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + path, method=method,
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json"},
+        )
+        if self.cookie:
+            req.add_header("Cookie", self.cookie)
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                status, data, set_cookie = resp.status, resp.read(), resp.headers.get("Set-Cookie")
+        except urllib.error.HTTPError as e:
+            status, data, set_cookie = e.code, e.read(), e.headers.get("Set-Cookie")
+        if set_cookie:
+            self.cookie = set_cookie.split(";")[0]
+        return status, data
+
+    def req(self, method: str, path: str, body=None, expect: int = 200) -> dict:
+        status, data = self.raw(method, path, body)
+        check(status == expect, f"{method} {path}: {status} != {expect}: {data[:300]!r}")
+        return json.loads(data)
+
+    def login_admin(self) -> None:
+        from sph_pie_torch.service.users import DEFAULT_TEMP_PASSWORD
+
+        self.req("POST", "/api/auth/login",
+                 {"email": "admin@local", "password": DEFAULT_TEMP_PASSWORD})
+        self.req("POST", "/api/auth/password",
+                 {"currentPassword": DEFAULT_TEMP_PASSWORD, "password": H_PASSWORD})
+
+    def execute(self, name: str, scene: str, params: dict, steps: int, record_every: int,
+                timeout: float = 600) -> tuple[dict, float]:
+        """Create a run, execute it, poll until it ends; (run, seconds from
+        the execute request to the end seen)."""
+        rid = self.req("POST", "/api/runs", {"name": name, "scene": scene, "runDate": "2026-10-17",
+                                             "params": params}, 201)["run"]["id"]
+        t0 = time.perf_counter()
+        self.req("POST", f"/api/runs/{rid}/execute", {"steps": steps, "recordEvery": record_every},
+                 202)
+        while time.perf_counter() - t0 < timeout:
+            run = self.req("GET", f"/api/runs/{rid}")["run"]
+            if run.get("status") in ("completed", "failed"):
+                break
+            time.sleep(H_POLL_S)
+        check(run.get("status") == "completed", f"{name}: run {run.get('status')}: {run.get('error')}")
+        return run, time.perf_counter() - t0
+
+
+def png_pixels(data: bytes) -> np.ndarray:
+    """uint8 [H, W] of the service's 8-bit grayscale PNG (rows filter 0)."""
+    import struct
+    import zlib
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    i, idat, shape = 8, b"", None
+    while i < len(data):
+        (n,) = struct.unpack(">I", data[i:i + 4])
+        tag, body = data[i + 4:i + 8], data[i + 8:i + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat += body
+        i += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(shape[0], shape[1] + 1)
+    return rows[:, 1:]
+
+
+@contextlib.contextmanager
+def served(app):
+    """``app`` on an ephemeral port of localhost, in a thread; the client."""
+    import threading
+
+    from sph_pie_torch.service.api import make_server
+
+    srv = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield Client(f"http://127.0.0.1:{srv.server_port}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        app.registry.get_provider().dispose()
+
+
+def phase_h1(b_ms: float) -> dict:
+    """The service in this process: a 1M dam break submitted over HTTP and
+    executed on the card, a PBF run, and a preview frame against the CPU's."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from sph_pie_torch.service.api import App
+    from sph_pie_torch.utils.checkpoint import load_state
+
+    print(f"== Phase H1: the service on the card, dam_break_3d({H_N:_}) submitted over HTTP, "
+          f"{H_STEPS} steps, a record every {H_RECORD}", flush=True)
+    root = Path(__file__).resolve().parent
+    d = Path(tempfile.mkdtemp(dir=root, prefix=".chip_smoke_"))
+    try:
+        app = App(config_path=d / "cfg.json", data_dir=str(d), env={}, device="cuda")
+        with served(app) as c:
+            c.login_admin()
+            health = c.req("GET", "/api/health")
+            dev = health["device"]
+            gline(f"  /api/health device {dev}, storage {health['storage']['provider']}")
+            check(dev["backend"] == "cuda" and torch.cuda.get_device_name(0) in dev["devices"][0],
+                  f"H1: health does not name the card: {dev}")
+
+            reset_launches()
+            # ---- the service path: counts start at 0 here ----
+            run, wall = c.execute("h1-flagship", "dam_break_3d", {"n_target": H_N}, H_STEPS,
+                                  H_RECORD)
+            launches = read_launches()
+            # ---- counts read here ----
+            rows, timing = run["steps"], run["timing"]
+            ms = timing["stepSeconds"] * 1e3 / H_STEPS
+            gline(f"  run {run['status']} in {wall:.2f} s from the execute request: scene build "
+                  f"{timing['buildSeconds']:.3f} s, {H_STEPS} steps {timing['stepSeconds']:.3f} s "
+                  f"= {ms:.3f} ms/step (Phase B {b_ms:.3f}; epochs of {H_RECORD} steps, each "
+                  f"binned and unbinned, one read of the metrics a record), checkpoint "
+                  f"{timing['checkpointSeconds']:.3f} s")
+            marks = [run["startedAt"]] + [r["recordedAt"] for r in rows]
+            print(f"  ms a step in each epoch of {H_RECORD} (step rows' and the run's start "
+                  "timestamps, ms resolution; bin_state, the steps, unbin, the metrics read, "
+                  "the row write): " + ", ".join(
+                      f"{(b - a) / H_RECORD:.2f}" for a, b in zip(marks, marks[1:])))
+            print("  step rows: " + "; ".join(
+                f"{r['step']}: n_active {r['n_active']}, overflow {r['overflow']}, kinetic energy "
+                f"{r['kinetic_energy']:.4e}, max speed {r['max_speed']:.4f}" for r in rows))
+            print(f"  launches over the run: {launches}")
+            check([r["step"] for r in rows] == list(range(H_RECORD, H_STEPS + 1, H_RECORD)),
+                  "H1: step rows")
+            check(all(r["n_active"] == 995_328 and r["overflow"] == 0 for r in rows),
+                  "H1: n_active or overflow")
+            check(rows[-1]["kinetic_energy"] > 0, "H1: the dam did not move")
+            check(launches["density"] == launches["forces"] == H_STEPS and launches["expand"] >= 1,
+                  f"H1: launches {launches} (density and forces {H_STEPS} each, expand >= 1)")
+            (ckpt,) = (d / "checkpoints" / run["id"]).glob("ckpt_*.npz")
+            st, params, step, _ = load_state(ckpt, device=app.device)
+            n_ckpt = int(st.active.sum())
+            print(f"  checkpoint {ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB): step {step}, "
+                  f"n_active {n_ckpt}")
+            check(step == H_STEPS and n_ckpt == rows[-1]["n_active"], "H1: the checkpoint")
+            del st, params
+
+            pbf, pbf_wall = c.execute("h1-pbf", "dam_break_3d",
+                                      {"n_target": H_PBF_N, "solver": "pbf"}, H_PBF_STEPS,
+                                      H_PBF_STEPS // 2)
+            last = pbf["steps"][-1]
+            gline(f"  PBF run (solver pbf, dam_break_3d({H_PBF_N:_})): {pbf['status']} in "
+                  f"{pbf_wall:.2f} s, steps {[r['step'] for r in pbf['steps']]}, n_active "
+                  f"{last['n_active']}, overflow {last['overflow']}, kinetic energy "
+                  f"{last['kinetic_energy']:.4e}")
+            check(last["overflow"] == 0 and last["kinetic_energy"] > 0
+                  and [r["step"] for r in pbf["steps"]] == [H_PBF_STEPS // 2, H_PBF_STEPS],
+                  "H1: the PBF run")
+
+            t0 = time.perf_counter()
+            status, png = c.raw("GET", f"/api/scenes/dam_break_2d/preview.png?steps={H_PREVIEW}")
+            t_png = time.perf_counter() - t0
+            check(status == 200, f"H1: preview {status}")
+        cpu_app = App(config_path=d / "cpu" / "cfg.json", data_dir=str(d / "cpu"), env={},
+                      device="cpu")
+        want = png_pixels(cpu_app.preview_frame("dam_break_2d", H_PREVIEW)).astype(int)
+        cpu_app.registry.get_provider().dispose()
+        got = png_pixels(png).astype(int)
+        diff = np.abs(got - want)
+        share = float((diff > 0).mean())
+        gline(f"  preview dam_break_2d steps={H_PREVIEW}: {t_png:.3f} s; card vs CPU App: max "
+              f"{int(diff.max())} count, {share:.2e} of pixels differ (bound 1 count on "
+              f"{U8_SHARE:g}); {int((want > 0).sum())} lit")
+        check(got.shape == want.shape and int(diff.max()) <= 1 and share <= U8_SHARE,
+              "H1: the card's preview differs from the CPU's")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def cli(args: list[str], cwd) -> subprocess.Popen:
+    """``python -m sph_pie_torch <args>`` in ``cwd``, this checkout first on
+    the path; stdout piped, stderr to ``cwd/stderr.txt``."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "sph_pie_torch", *args], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=open(Path(cwd) / "stderr.txt", "w"), text=True,
+    )
+
+
+def stderr_tail(cwd) -> str:
+    from pathlib import Path
+
+    return Path(cwd, "stderr.txt").read_text()[-2000:]
+
+
+def phase_h2() -> None:
+    """``python -m sph_pie_torch serve`` as a process: its address line, then
+    ``/api/health`` naming the card; terminated."""
+    import select
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    print("== Phase H2: python -m sph_pie_torch serve (a process, config port 0)", flush=True)
+    d = tempfile.mkdtemp(dir=Path(__file__).resolve().parent, prefix=".chip_smoke_")
+    try:
+        Path(d, "cfg.json").write_text(json.dumps({"port": 0}))
+        t0 = time.perf_counter()
+        proc = cli(["serve", "--config", "cfg.json"], d)
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], H_SERVE_TIMEOUT)
+            line = proc.stdout.readline().strip() if ready else ""
+            t_up = time.perf_counter() - t0
+            check(line.startswith("sph-pie-torch service on http://"),
+                  f"H2: no address line in {H_SERVE_TIMEOUT} s: {line!r}\n{stderr_tail(d)}")
+            health = Client(line.split(" on ")[1]).req("GET", "/api/health")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        gline(f"  '{line}' after {t_up:.2f} s; /api/health device {health['device']}; exit "
+              f"{proc.returncode} on terminate")
+        check(health["device"]["backend"] == "cuda"
+              and torch.cuda.get_device_name(0) in health["device"]["devices"][0],
+              f"H2: health does not name the card: {health['device']}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_h3() -> None:
+    """``python -m sph_pie_torch verify`` on the card (its default): the 4k /
+    1000-step float64 contract against the native oracle."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    print("== Phase H3: python -m sph_pie_torch verify (the card, float64, 4k / 1000 steps)",
+          flush=True)
+    d = tempfile.mkdtemp(dir=Path(__file__).resolve().parent, prefix=".chip_smoke_")
+    try:
+        proc = cli(["verify"], d)
+        try:
+            out, _ = proc.communicate(timeout=H_VERIFY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        lines = out.splitlines()
+        for line in lines[:-1]:
+            print(f"  {line}")
+        check(proc.returncode == 0 and lines, f"H3: verify exited {proc.returncode}\n{out}\n"
+              f"{stderr_tail(d)}")
+        r = json.loads(lines[-1])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gline(f"  {r['particles']} particles, {r['steps']} steps on {r['device']}: max |dx| "
+          f"{r['max_abs_dx']:.3e}, rms {r['rms']:.3e} against the {r['oracle']} oracle (bound "
+          f"{r['tol']:g}), overflow {r['overflow']}, launches {r['launches']}; engine "
+          f"{r['engine_s']:.2f} s, oracle {r['oracle_s']:.2f} s")
+    check(r["ok"] and r["device"].startswith("cuda") and r["oracle"] == "native"
+          and r["max_abs_dx"] < 1e-3 and r["overflow"] == 0
+          and r["launches"]["density"] == r["launches"]["forces"] == r["steps"] == 1000,
+          f"H3: the contract failed: {r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2336,6 +2648,15 @@ def main() -> int:
             phase()
             seconds[name] = time.perf_counter() - t0
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        service = phase_h1(b_ms)
+        seconds["H1"] = time.perf_counter() - t0
+        for row in rows:
+            row["launches"] += service.get(row["name"], 0)  # the path of rows 1-3
+        for name, phase in (("H2", phase_h2), ("H3", phase_h3)):
+            t0 = time.perf_counter()
+            phase()
+            seconds[name] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,16 +9,19 @@ edited source rebuilds, an unchanged one loads the existing library.
 
 There is no fallback: without ``nvcc``, or when the build fails, ``build``
 raises with the compiler's output.
+
+One lock guards the build and the load: the threads of one process (a
+service's run worker and a preview request) build once and load one file.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -56,6 +59,10 @@ _SIGNATURES = {
     },
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# build() names its objects by process: two threads of one process building
+# at once would write and unlink the same files.
+_lock = threading.RLock()
+_lib: ctypes.CDLL | None = None
 
 
 def find_nvcc() -> str:
@@ -91,6 +98,11 @@ def build(nvcc: str | None = None) -> Path:
     build takes about as long as the slowest source; the objects are then
     linked. The compiler's report (registers, spills per kernel) is kept
     beside the library as ``.log``."""
+    with _lock:
+        return _build(nvcc)
+
+
+def _build(nvcc: str | None) -> Path:
     out = library_path()
     if out.exists():
         return out
@@ -124,15 +136,20 @@ def build(nvcc: str | None = None) -> Path:
     return out
 
 
-@functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
 
 
 def launch(kernel: str, dtype: torch.dtype, *args) -> None:

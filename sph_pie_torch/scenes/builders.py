@@ -216,8 +216,11 @@ def dam_break_2d(
     device: torch.device | str = "cuda",
     **overrides,
 ) -> Scene:
-    """2D dam break, ~n_target particles: a 0.4 x 0.6 fluid column in a unit
-    box; dx solved from the target count."""
+    """BASELINE config #1: 2D dam break, ~4k particles, WCSPH.
+
+    A 0.4 x 0.6 fluid column in a unit box; dx solved from the target count
+    (the first line is the service's scene catalog entry, as the JAX
+    package's)."""
     area = 0.4 * 0.6
     dx = math.sqrt(area / n_target)
     return block_scene(
@@ -240,9 +243,11 @@ def emitter_2d(
     device: torch.device | str = "cuda",
     **overrides,
 ) -> Scene:
-    """2D faucet fill: an emitter stream from a nozzle at the top of a unit
-    box onto a circular obstacle, XSPH viscosity, boundary penalty walls.
-    All ``n_target`` rows start inactive; the stream activates them."""
+    """BASELINE config #2: 2D faucet fill — emitter stream onto a circular
+    obstacle, XSPH viscosity, boundary penalty walls.
+
+    The stream comes from a nozzle at the top of a unit box. All
+    ``n_target`` rows start inactive; the stream activates them."""
     fill_area = 0.3  # m^2 the stream will eventually fill
     dx = math.sqrt(fill_area / n_target)
     h = 2.0 * dx
@@ -310,8 +315,9 @@ def dam_break_3d(
     device: torch.device | str = "cuda",
     **overrides,
 ) -> Scene:
-    """3D dam break with surface tension and XSPH: a 0.3 x 0.4 x 0.6 column
-    at one end of a 1 x 0.4 x 0.75 tank.
+    """BASELINE config #3: 3D dam break with surface tension, ~100k.
+
+    XSPH on; a 0.3 x 0.4 x 0.6 column at one end of a 1 x 0.4 x 0.75 tank.
 
     Defaults to skin 0.40 with cap 40 (the reference's flagship geometry);
     an explicit ``skin_frac`` owns its cap."""

@@ -64,18 +64,26 @@ def _state_metrics(state: ParticleState, gravity: torch.Tensor) -> dict:
     }
 
 
+_SCALARS = ("n_active", "mean_density", "max_density", "min_density", "max_speed",
+            "mean_speed", "kinetic_energy", "potential_energy")
+
+
 @torch.no_grad()
 def state_metrics(state: ParticleState, params, step: int = 0) -> dict:
-    """Host-side dict of Python scalars for one state snapshot."""
+    """Host-side dict of Python scalars for one state snapshot: one read
+    from the device (every value in float64, exact for these dtypes and
+    counts)."""
     raw = _state_metrics(state, params.gravity)
     dim = state.dim
-    out = {"step": int(step), "time": float(params.dt) * int(step),
-           "n_active": int(raw["n_active"])}
-    for k in ("mean_density", "max_density", "min_density", "max_speed", "mean_speed",
-              "kinetic_energy", "potential_energy"):
-        out[k] = float(raw[k])
-    mom = [float(x) for x in raw["momentum"]] + [0.0] * (3 - dim)
-    com = [float(x) for x in raw["com"]] + [0.0] * (3 - dim)
+    scalars = [raw[k] for k in _SCALARS] + [params.dt]
+    flat = torch.cat([torch.stack([v.to(torch.float64) for v in scalars]),
+                      raw["momentum"].to(torch.float64), raw["com"].to(torch.float64)])
+    vals = flat.tolist()
+    k = len(scalars)
+    out = {"step": int(step), "time": vals[k - 1] * int(step), "n_active": int(vals[0])}
+    out.update(zip(_SCALARS[1:], vals[1:k - 1]))
+    mom = vals[k:k + dim] + [0.0] * (3 - dim)
+    com = vals[k + dim:] + [0.0] * (3 - dim)
     out.update(momentum_x=mom[0], momentum_y=mom[1], momentum_z=mom[2])
     out.update(com_x=com[0], com_y=com[1], com_z=com[2])
     return out

@@ -1,13 +1,18 @@
 """Port vs reference: ``python -m sph_pie_torch simulate`` and the metrics
-it prints (``sph_pie_torch/service/metrics.py``), on the CPU."""
+it prints (``sph_pie_torch/service/metrics.py``), and the port's ``serve``
+and ``verify`` commands, on the CPU."""
 
 import json
 import math
+import subprocess
+import sys
+import urllib.request
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sph_pie_torch.__main__ import main as tmain
 from sph_pie_torch.core import state as tstate
@@ -57,10 +62,12 @@ def test_simulate_by_builder_name(capsys):
 
 
 def test_help_names_what_is_not_ported(capsys):
+    """Every command of the reference's CLI but ``bench`` is ported: the help
+    names ``serve``, ``simulate`` and ``verify`` and nothing not ported."""
     with pytest.raises(SystemExit):
         tmain(["--help"])
     text = capsys.readouterr().out
-    assert "simulate" in text and "'serve' and 'verify'" in text
+    assert "{serve,simulate,verify}" in text and "not ported" not in text
 
 
 def _to_ref(st) -> ParticleState:
@@ -88,3 +95,56 @@ def test_state_metrics_match_reference_on_the_same_state():
     assert got_agg == jmetrics.aggregate_run_stats([rows[0][0], rows[0][0]])
     assert tmetrics.aggregate_run_stats([]) == {"samples": 0}
     assert np.isfinite(got_agg["kinetic_energy_avg"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve"], ["serve", "--config", "x.json"], ["verify"],
+    ["verify", "--n-target", "64", "--steps", "3"],
+])
+def test_serve_and_verify_fail_without_a_card(argv, capsys):
+    """``serve`` and ``verify`` parse and default to ``--device cuda``;
+    without a card they exit 2 naming the missing device, having started,
+    read or written nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    for args in (argv, argv + ["--device", "cuda"]):
+        with pytest.raises(SystemExit) as exc:
+            tmain(args)
+        assert exc.value.code == 2
+        err = capsys.readouterr()
+        assert "no CUDA device" in err.err and not err.out
+
+
+def test_verify_on_the_cpu_runs_small(capsys):
+    """``verify --device cpu --n-target 256 --steps 50``: the human lines,
+    then the result as the last line of JSON; exit 0 on a pass."""
+    assert tmain(["verify", "--device", "cpu", "--n-target", "256", "--steps", "50"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    result = json.loads(lines[-1])
+    assert result["ok"] and result["steps"] == 50 and result["max_abs_dx"] < 1e-6
+    assert result["device"] == "cpu" and result["oracle"] in ("native", "numpy")
+    assert any(line.startswith("max |dx| = ") and line.endswith("PASS") for line in lines)
+
+
+def test_serve_on_the_cpu_answers_health(tmp_path):
+    """``python -m sph_pie_torch serve --device cpu`` in a scratch directory
+    with a config on port 0: it prints its bound address, answers
+    ``/api/health`` naming the CPU, and stops when terminated."""
+    (tmp_path / "cfg.json").write_text(json.dumps({"port": 0}))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sph_pie_torch", "serve", "--config", "cfg.json",
+         "--device", "cpu"],
+        cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)},
+    )
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("sph-pie-torch service on http://127.0.0.1:"), line
+        with urllib.request.urlopen(line.split(" on ")[1] + "/api/health", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["device"] == {"backend": "cpu", "deviceCount": 1, "devices": ["cpu"]}
+        assert health["storage"]["provider"] == "sqlite"
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)
+    assert proc.returncode is not None

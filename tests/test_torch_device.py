@@ -10,11 +10,13 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from sph_pie_torch import verify
 from sph_pie_torch.core import params, state
 from sph_pie_torch.micro import center_slab
 from sph_pie_torch.neighbors import runs
 from sph_pie_torch.parallel import comm, dryrun
 from sph_pie_torch.scenes import builders, config, emitter, obstacles
+from sph_pie_torch.service import api, executor, health
 from sph_pie_torch.utils import checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,6 +39,11 @@ ENTRY_POINTS = {
     "load_state": checkpoint.load_state,
     "make_mesh": comm.make_mesh,
     "dryrun_multichip": dryrun.dryrun_multichip,
+    "App": api.App,
+    "serve": api.serve,
+    "RunExecutor": executor.RunExecutor,
+    "health_snapshot": health.health_snapshot,
+    "verify.run": verify.run,
 }
 
 
@@ -65,6 +72,12 @@ SCENE_CALLS = {
         {"builder": "dam_break_2d", "builder_args": {"n_target": 200}}),
     "make_mesh": lambda: comm.make_mesh(4),
     "dryrun_multichip": lambda: dryrun.dryrun_multichip(8),
+    # the service and the contract check the device before anything else:
+    # no file is read or written, no port bound
+    "App": lambda: api.App(config_path=ROOT / "no-such-dir" / "cfg.json"),
+    "serve": lambda: api.serve(ROOT / "no-such-dir" / "cfg.json"),
+    "RunExecutor": lambda: executor.RunExecutor(registry=None),
+    "verify.run": lambda: verify.run(n_target=64, steps=1),
 }
 
 
@@ -168,3 +181,11 @@ def test_run_constants_are_the_kernels(name, const):
     src = (Path(runs.__file__).parents[1] / "csrc" / "common.cuh").read_text()
     m = re.search(rf"constexpr int {const} = (\d+);", src)
     assert m and int(m.group(1)) == getattr(runs, name)
+
+
+def test_health_reports_the_services_device_only():
+    """``device_info`` on the CPU names the CPU alone; without a card the
+    default reports what failed instead of another device."""
+    assert health.device_info("cpu") == {"backend": "cpu", "deviceCount": 1, "devices": ["cpu"]}
+    if not torch.cuda.is_available():
+        assert health.device_info()["backend"] == "unavailable"
