@@ -39,6 +39,12 @@ the center slab also rebinned at cap 30 and on inputs that start off a
 16-byte boundary (its one-thread-per-slot arm, whose bits its other arm must
 give).
 
+Phase A then holds the five PBF kernels (``csrc/pbf.cu``: lambda, dx,
+density+XSPH, vorticity and its eta) against their plain folds on the 3D
+100k state in float32, on the 2D 4096 and a 3D 20k in float64, and with
+``home=`` a proper sub-range of a buffer cut from the grid against the same
+rows of the whole grid, bit for bit.
+
 Phase B drives the main path at the flagship size — ``dam_break_3d(1M)``,
 ``bin_state``, 5 warm steps, 3 timed reps of 20 steps — with every launch
 counter reset just before and read just after, then times each kernel
@@ -59,15 +65,20 @@ Phase D drives the PBF solver and the frame renderer. D1 is BASELINE
 config #4 as ``bench.py``'s ``pbf_3d_1m_render`` row runs it:
 ``dam_break_3d(1M)`` under ``flagship_params()`` (the "ride" epilogue), a
 ``render_binned_u8`` frame after every step whose sum is consumed on the
-device, with the ``expand`` and ``density`` launch counters reset just
-before and read just after; it prints ms/step, particle-steps/s, rebins and
-checks, host syncs, peak memory, and then the time of each fold and of one
-frame on the final state. D2 runs ``dam_break_3d(20k)`` for 5 PBF steps on
-the card and on the CPU under the flagship, the "gather" epilogue,
-vorticity confinement (whose final density is the ``density`` kernel) and
-a scene without XSPH, and holds card against CPU, ride against gather, and
-the card's frames (``splat``, ``splat_binned`` and their uint8 forms)
-against the CPU's.
+device, 5 warm steps and 3 timed reps of 20 (Phase B's), with the launch
+counters of ``expand``, ``density`` and the five PBF kernels
+(``csrc/pbf.cu``) reset just before and read just after; it prints
+ms/step, particle-steps/s, rebins and checks, host syncs, peak memory and
+a ``torch.profiler`` window of 5 more steps, then checks that the PBF
+kernels' launchers make no host sync, holds each
+against its plain fold on the final state and times each fold and one
+frame there. D2 runs ``dam_break_3d(20k)`` for 5 PBF steps on the card (the
+kernels) and on the CPU (the plain folds) under the flagship, the "gather"
+epilogue, vorticity confinement (whose final density is the ``density``
+kernel, and which launches both vorticity kernels) and a scene without
+XSPH, and holds card against CPU, ride against gather, and the card's
+frames (``splat``, ``splat_binned`` and their uint8 forms) against the
+CPU's.
 
 Phase E drives the scene runner (``solvers/run.py``: emission, binning,
 steps and unbinning epoch by epoch) with obstacles and emitters. E1 is
@@ -196,7 +207,13 @@ FRAME_ATOL = 1e-5     # D2: float frames card vs CPU, scale-normalised: the
 U8_SHARE = 1e-3       # D2: u8 frames card vs CPU: at most one count apart, on at
                       # most this share of the pixels (a float 1 ulp apart can
                       # cross a truncation step)
-D_WARM, D_STEPS, D_REPS = 1, 2, 3  # D1: PBF steps before timing; timed steps x reps
+PBF_FOLD_ATOL = 1e-5  # pbf.cu f32 against its plain fold, scale-normalised (rho
+                      # relative): summation order only, as density and forces
+PBF_FOLD_ATOL_F64 = 1e-10  # pbf.cu f64, scale-normalised (rho relative): forces'
+                           # float64 bound
+D_WARM, D_STEPS, D_REPS = 5, 20, 3  # D1: PBF steps before timing; timed steps x reps
+                                    # (Phase B's)
+D_PROFILE = 5         # D1: steps under torch.profiler, apart from the timed ones
 D2_STEPS = 5          # D2: PBF steps on the card and on the CPU
 FRAME = dict(resolution=(256, 256), axis=1, gain=50.0)  # bench.py's in-loop frame
 E1_WARM, E1_STEPS, E1_REPS = 100, 500, 3  # E1: bench.py's _measure_emitter
@@ -269,6 +286,18 @@ DENSITY_PAIR_FLOPS = 14
 # viscous weight (2), per axis dv and two multiply-adds (15): 34; cohesion
 # adds 11, XSPH 11 (its weight 5, per axis a multiply-add).
 FORCES_PAIR_FLOPS, COHESION_FLOPS, XSPH_FLOPS = 34, 11, 11
+# The PBF folds (csrc/pbf.cu), per pair in support in 3D: r^2 (8); lambda:
+# rsqrt, r, q (3), poly6 and its sum (6), the gradient over r (3), its
+# coefficient (1), per axis g, g^2 and two sums (12): 33; dx: rsqrt, r, q
+# (3), poly6 (4), the ratio and its 4th power by squaring (3), s_corr and
+# the lambda sum (3), the gradient (3), its coefficient (2), per axis a
+# multiply-add (6): 32; density+XSPH: poly6 (4), rho's and S0's terms (4),
+# per axis a multiply-add (6): 22; vorticity: rsqrt, r, q (3), the gradient
+# (3), its coefficient (1), per axis dv and g (6), the cross product's three
+# components (12): 33; vorticity's eta: rsqrt, r, q (3), the gradient (3),
+# its coefficient (1), per axis a multiply-add (6): 21.
+PBF_PAIR_FLOPS = {"lambda": 33, "dx": 32, "density_xsph": 22, "vorticity": 33,
+                  "vorticity_eta": 21}
 
 KERNELS = {
     "density": (
@@ -307,6 +336,13 @@ KERNELS = {
         "sph_pie_torch/csrc/forces_mma.cu",
         "scripts/micro_mxu_vmem.py:248",
     ),
+    # The PBF folds: the reference runs them as XLA slab folds (no
+    # pl.pallas_call); "replaces" names that fold.
+    "pbf_lambda": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:180"),
+    "pbf_dx": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:231"),
+    "pbf_density_xsph": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:269"),
+    "pbf_vorticity": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:318"),
+    "pbf_vorticity_eta": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:360"),
 }
 
 
@@ -1012,6 +1048,148 @@ def phase_a_micro() -> None:
     packing_cases(*cap32, s.bgrid, b)
 
 
+def pbf_calls(params, grid, pp, b) -> dict:
+    """{op: (kernel, plain version, arguments)} of the five PBF folds on
+    state ``b``. The inputs one fold takes from another (lambda, rho,
+    omega) are the plain versions', so each kernel is held on its own; the
+    XSPH weight is m / rho of the state's density (rest density where it
+    has none)."""
+    from sph_pie_torch.neighbors import pbf_folds as pf
+
+    pos, vel, mass = b.pos, b.vel, b.mass
+    lam, rho = pf.lambda_fold_plain(params, pp, grid, pos, mass)
+    m_rho = mass / torch.where(b.density > 0, b.density, params.rest_density)
+    m_rho_v = mass / torch.maximum(rho, 1e-6 * params.rest_density)
+    omega = pf.vorticity_fold_plain(params, grid, pos, vel, mass, m_rho_v)
+    wmag = torch.sqrt(torch.clamp((omega * omega).sum(-1), min=0.0))
+    return {
+        "lambda": (pf.lambda_fold, pf.lambda_fold_plain, (params, pp, grid, pos, mass)),
+        "dx": (pf.dx_fold, pf.dx_fold_plain, (params, pp, grid, pos, mass, lam)),
+        "density_xsph": (pf.density_xsph_fold, pf.density_xsph_fold_plain,
+                         (params, grid, pos, vel, mass, m_rho)),
+        "vorticity": (pf.vorticity_fold, pf.vorticity_fold_plain,
+                      (params, grid, pos, vel, mass, m_rho_v)),
+        "vorticity_eta": (pf.vorticity_eta_fold, pf.vorticity_eta_fold_plain,
+                          (params, grid, pos, mass, m_rho_v * wmag)),
+    }
+
+
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def compare_pbf(params, grid, pp, b, atol: float) -> tuple[dict, dict]:
+    """Each PBF kernel against its plain fold on state ``b``, on the
+    occupied slots (densities relative, the rest scale-normalised), and 0 on
+    every empty slot; raises past ``atol``. Returns ({op: max abs error},
+    {op: plain ms})."""
+    from sph_pie_torch.neighbors import pbf_folds as pf
+
+    occ = b.mass != 0
+    errs, plain_ms = {}, {}
+    calls = pbf_calls(params, grid, pp, b)
+    for op, (kernel, plain, args) in calls.items():
+        got = as_tuple(kernel(*args))
+        want, plain_ms[op] = timed(lambda: plain(*args))
+        want = as_tuple(want)
+        parts, worst, errs[op] = [], 0.0, 0.0
+        for k, (g_, w_) in enumerate(zip(got, want)):
+            density = (op, k) in (("lambda", 1), ("density_xsph", 0))
+            go, wo = g_[occ], w_[occ]
+            if density:
+                e, how = ((go - wo).abs() / wo.abs()).max().item(), "rho rel"
+            elif (op, k) == ("density_xsph", 1):
+                # dv = S1 - v_i S0 is a difference of sums: each slot's error
+                # is normalised by the size of its terms, sum_j w_j W |v_j| +
+                # |v_i| S0. The plain fold under mass m/rho and velocity |v|
+                # gives S0 (as rho) and that sum less |v_i| S0 (as dv)
+                _, pos, vel, mass, m_rho = args[1:]
+                s0, dva = (x[occ] for x in pf.density_xsph_fold_plain(
+                    params, grid, pos, vel.abs(), m_rho, m_rho))
+                scale = dva + 2 * vel[occ].abs() * s0[:, None]
+                e = ((go - wo).abs() / scale.clamp(min=torch.finfo(scale.dtype).tiny)).max().item()
+                how = (f"per slot by its terms' size (max |dv| / max |v| "
+                       f"{(wo.abs().max() / vel[occ].abs().max()).item():.3e})")
+            else:
+                e, how = scaled(go, wo), "scaled"
+            parts.append(f"{how} {e:.3e}")
+            worst = max(worst, e)
+            errs[op] = max(errs[op], (go - wo).abs().max().item())
+        empty0 = all(bool((g_[~occ] == 0).all()) for g_ in got)
+        print(f"  pbf {op:13s} {', '.join(parts)} (bound {atol:g}); empty slots 0: {empty0}")
+        check(worst <= atol and empty0, f"pbf {op} kernel disagrees")
+    return errs, plain_ms
+
+
+def pbf_home_range(params, grid, pp, b) -> None:
+    """The five kernels with ``home=`` a proper sub-range of a buffer cut
+    from the whole grid (its cells with a halo's margin each side): the
+    same rows as the whole-grid launch, bit for bit."""
+    from sph_pie_torch.neighbors import binned as nb
+
+    C, cap, S, hc = grid.num_cells, grid.cap, grid.num_slots, nb.halo_cells(grid)
+    first, count = C // 3, C // 4
+    lo, hi = first - hc, first + count + hc
+    rows = slice(lo * cap, hi * cap)
+    same = {}
+    for op, (kernel, _, args) in pbf_calls(params, grid, pp, b).items():
+        whole = as_tuple(kernel(*args))
+        cut = tuple(a[rows].clone() if isinstance(a, torch.Tensor) and a.shape[:1] == (S,)
+                    else a for a in args)
+        part = as_tuple(kernel(*cut, home=(first - lo, count)))
+        same[op] = all(torch.equal(p_, w_[first * cap:(first + count) * cap])
+                       for p_, w_ in zip(part, whole))
+    print(f"  pbf home=({first - lo}, {count}) of a buffer of {hi - lo} cells (cells {first} to "
+          f"{first + count} of {C}): equal bit for bit to the whole grid's rows: {same}")
+    check(all(same.values()), f"pbf kernels on a home range differ: {same}")
+
+
+def phase_a_pbf() -> None:
+    from sph_pie_torch.scenes import dam_break_2d, dam_break_3d
+    from sph_pie_torch.solvers import pbf, wcsph_binned
+    from sph_pie_torch.utils.struct import replace
+
+    print("== Phase A: the PBF folds (csrc/pbf.cu) against their plain versions")
+    # the float64 3D layouts take more than the 48 KB of shared memory a
+    # launch gets unasked (~52 KB at cap 40)
+    for make, n, dt, atol in ((dam_break_3d, 100_000, torch.float32, PBF_FOLD_ATOL),
+                              (dam_break_2d, 4096, torch.float64, PBF_FOLD_ATOL_F64),
+                              (dam_break_3d, 20_000, torch.float64, PBF_FOLD_ATOL_F64)):
+        s = make(n, dtype=dt, device="cuda")
+        b = wcsph_binned.simulate(s.params, s.bgrid, s.binned_state(), 10)
+        # 10 steps from rest the flow is near uniform and the XSPH dv nearly
+        # cancels: seeded velocities on the occupied slots give every fold's
+        # velocity term its full size
+        occ = b.mass != 0
+        v = np.random.default_rng(n).normal(size=(int(occ.sum()), s.bgrid.dim))
+        vel = torch.zeros_like(b.vel)
+        vel[occ] = torch.as_tensor(v, dtype=dt, device="cuda")
+        b = replace(b, vel=vel)
+        pp = pbf.make_pbf_params(iters=2, vort_eps=5.0, dtype=dt)
+        print(f" {s.name}({n}) {dt} after 10 WCSPH steps, seeded velocities N(0, 1) on the "
+              f"occupied slots: cap {s.bgrid.cap}, slots {s.bgrid.num_slots}, occupied "
+              f"{int(occ.sum())}")
+        check(int(b.overflow) == 0, f"{s.name}: overflow")
+        compare_pbf(s.params, s.bgrid, pp, b, atol)
+        pbf_home_range(s.params, s.bgrid, pp, b)
+
+
+def pbf_kernels():
+    from sph_pie_torch.neighbors import pbf_folds as pf
+
+    return pf.FOLDS
+
+
+def reset_pbf() -> None:
+    for k in pbf_kernels():
+        k.launches = 0
+
+
+def read_pbf() -> dict:
+    """{op: launches} of the five PBF kernels."""
+    return {k.__name__.removesuffix("_fold"): k.launches for k in pbf_kernels()}
+
+
 def phase_c(main_path) -> list[dict]:
     from sph_pie_torch.micro import center_slab as cs
     from sph_pie_torch.micro.forces_mma import forces_mma
@@ -1237,22 +1415,23 @@ def pbf_roll(params, grid, pp, b, steps: int, checksum):
     return b, checksum
 
 
-def fold_inputs(params, grid, pp, b):
-    """The three fold calls of a flagship step under ``pp``, on state ``b``."""
-    from sph_pie_torch.neighbors import binned as nb
-    from sph_pie_torch.solvers import pbf
+def pbf_bounds(grid, b, pairs: int) -> dict:
+    """{op: (least ms, bound_by)} of the five PBF folds on state ``b``: what
+    any implementation must touch is the mass of every slot in (an empty
+    slot is known by it) and every slot's outputs out, and pos and the op's
+    other inputs only of the occupied slots; its operations are the pairs
+    in support times ``PBF_PAIR_FLOPS``."""
+    S, dim, es = grid.num_slots, grid.dim, b.pos.element_size()
+    occ = int((b.mass != 0).sum())
+    nv = 3 if dim == 3 else 1
+    # (inputs of an occupied slot beside mass, outputs of a slot), in values
+    width = {"lambda": (dim, 2), "dx": (dim + 1, dim), "density_xsph": (2 * dim + 1, 1 + dim),
+             "vorticity": (2 * dim + 1, nv), "vorticity_eta": (dim + 1, dim)}
+    return {op: bound((S * (1 + w_out) + occ * w_in) * es, pairs * PBF_PAIR_FLOPS[op])
+            for op, (w_in, w_out) in width.items()}
 
-    fields = {**nb._planar("p", b.pos), "mass": b.mass}
-    lam, _ = pbf._lambda_fold(params, pp, grid, fields)
-    m_rho = b.mass / torch.where(b.density > 0, b.density, params.rest_density)
-    return {
-        "lambda": lambda: pbf._lambda_fold(params, pp, grid, fields),
-        "dx": lambda: pbf._dx_fold(params, pp, grid, {**fields, "lam": lam}),
-        "density+XSPH": lambda: pbf._density_xsph_fold(params, grid, b.pos, b.vel, b.mass, m_rho),
-    }
 
-
-def phase_d1() -> None:
+def phase_d1() -> dict:
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.expand import expand
     from sph_pie_torch.render import splat
@@ -1275,6 +1454,7 @@ def phase_d1() -> None:
     syncs: list[int] = []
     walls = []
     expand.launches = density.launches = 0
+    reset_pbf()
     # ---- the PBF path: counts start at 0 here ----
     b = s.binned_state()
     b, checksum = pbf_roll(p, g, pp, b, D_WARM, b.n_rebins.new_zeros((), dtype=torch.int64))
@@ -1287,14 +1467,14 @@ def phase_d1() -> None:
             b, checksum = pbf_roll(p, g, pp, b, D_STEPS, checksum)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / D_STEPS)
-    launches = {"expand": expand.launches, "density": density.launches}
+    launches = {"expand": expand.launches, "density": density.launches, **read_pbf()}
     # ---- counts read here ----
     peak = torch.cuda.max_memory_allocated()
     run, timed_steps = D_WARM + D_STEPS * D_REPS, D_STEPS * D_REPS
     ms = statistics.median(walls)
     rebins = int(b.n_rebins)
-    print(f" ms/step median {ms:.1f} over {D_REPS} reps of {D_STEPS} steps after {D_WARM} warm "
-          f"(reps {', '.join(f'{w:.1f}' for w in walls)}), frame included")
+    print(f" ms/step median {ms:.3f} over {D_REPS} reps of {D_STEPS} steps after {D_WARM} warm "
+          f"(reps {', '.join(f'{w:.3f}' for w in walls)}), frame included")
     print(f" particle-steps/s {n / (ms / 1e3):.4e}")
     print(f" rebins fired {rebins} in {run} steps ({rebins - rebins0} in the timed steps) of "
           f"{(pp.iters + 2) * run} checks ({pp.iters + 2} a step); overflow {int(b.overflow)}")
@@ -1305,6 +1485,8 @@ def phase_d1() -> None:
     frame = splat.render_binned_u8(g, b, **FRAME)
     lit = int((frame > 0).sum())
     print(f" frames' checksum {int(checksum)}; last frame {tuple(frame.shape)}, {lit} pixels lit")
+    device_profile(lambda: pbf_roll(p, g, pp, b, D_PROFILE, checksum), D_PROFILE,
+                   f"D1 {D_PROFILE} more steps")
     h = float(p.h)
     lo, hi = p.bound_min - 5 * h, p.bound_max + 5 * h
     pos = b.pos[b.valid]
@@ -1313,6 +1495,11 @@ def phase_d1() -> None:
     check(int(b.overflow) == 0, "PBF: overflow at 1M")
     check(launches["expand"] == 1 + rebins, f"expand launches {launches} != 1 + rebins {rebins}")
     check(launches["density"] == 0, "the flagship step launches no density kernel")
+    check(launches["lambda"] == launches["dx"] == pp.iters * run
+          and launches["density_xsph"] == run
+          and launches["vorticity"] == launches["vorticity_eta"] == 0,
+          f"PBF fold launches {launches}: lambda and dx {pp.iters * run}, density_xsph {run}, "
+          f"vorticity 0")
     check(lit > 0 and int(checksum) > 0, "the frames are dark")
 
     # expand at the row widths of PBF's rebins at 1M: ride (pos | vel |
@@ -1322,13 +1509,31 @@ def phase_d1() -> None:
         expand_equal(g, srt, " (light)" if light else " (ride)")
         check(srt.rows.shape[1] == (4 if light else 8), "PBF rebin row width")
 
-    # Each fold once on the final state, then the frame, by CUDA events.
-    folds = {name: timed(fn)[1] for name, fn in fold_inputs(p, g, pp, b).items()}
+    # The five kernels on the final state: no host sync, then against their
+    # plain folds, then each fold and the frame by CUDA events.
+    calls = pbf_calls(p, g, pp, b)
+    fold_syncs: list[int] = []
+    with counting_syncs(fold_syncs):
+        for kernel, _, args in calls.values():
+            kernel(*args)
+    print(f" host syncs of the five kernels' launchers on the final state: {fold_syncs[0]}")
+    check(fold_syncs[0] == 0, "a PBF fold launcher syncs with the host")
+    print(" the PBF kernels against their plain versions on the final state:")
+    errs, plain_ms = compare_pbf(p, g, pp, b, PBF_FOLD_ATOL)
+    fold_ms = {op: cuda_ms(lambda kernel=kernel, args=args: kernel(*args), 10)
+               for op, (kernel, _, args) in calls.items()}
     frame_ms = cuda_ms(lambda: splat.render_binned_u8(g, b, **FRAME), 10)
-    print(" fold ms on the final state: " + ", ".join(f"{k} {v:.1f}" for k, v in folds.items())
-          + f"; frame {frame_ms:.3f} ms")
+    print(" fold ms on the final state: " + ", ".join(f"{k} {v:.3f}" for k, v in fold_ms.items())
+          + f"; frame {frame_ms:.3f} ms [{card()}]")
+    pairs = pairs_in_support(g, b, p.h * p.h)
     print(f" occupied cells {int((b.mass.reshape(g.num_cells, g.cap) != 0).any(1).sum())} of "
-          f"{g.num_cells}")
+          f"{g.num_cells}; pairs in support on the final state {pairs} ({pairs / n:.2f} per "
+          f"particle)")
+    least = pbf_bounds(g, b, pairs)
+    rows = {op: kernel_row(f"pbf_{op}", launches[op], errs[op], fold_ms[op], plain_ms[op],
+                           least[op])
+            for op in calls}
+    return rows
 
 
 def pbf_cases(device: str, n: int) -> dict:
@@ -1351,7 +1556,7 @@ def pbf_cases(device: str, n: int) -> dict:
     return out
 
 
-def phase_d2() -> None:
+def phase_d2() -> dict:
     from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.render import splat
@@ -1360,13 +1565,25 @@ def phase_d2() -> None:
     print(f"== Phase D2: PBF and the frames, card against CPU, dam_break_3d({n}) float32, "
           f"{D2_STEPS} steps")
     density.launches = 0
+    reset_pbf()
+    # ---- the four configurations on the card: counts start at 0 here ----
     card = pbf_cases("cuda", n)
     torch.cuda.synchronize()
+    folds = read_pbf()
+    # ---- counts read here ----
     check(density.launches == 2 * D2_STEPS, f"density launches {density.launches}")
+    iters = 2 * 4  # every configuration runs 2 Jacobi iterations
+    check(folds["lambda"] == folds["dx"] == iters * D2_STEPS
+          and folds["density_xsph"] == 3 * D2_STEPS
+          and folds["vorticity"] == folds["vorticity_eta"] == D2_STEPS,
+          f"D2 fold launches {folds}: lambda and dx {iters * D2_STEPS}, density_xsph "
+          f"{3 * D2_STEPS} (all but no xsph), vorticity {D2_STEPS}")
     t0 = time.perf_counter()
     cpu = pbf_cases("cpu", n)
     print(f" CPU runs {time.perf_counter() - t0:.1f} s; density kernel launches on the card "
-          f"{density.launches} (vorticity and no xsph: one a step each)")
+          f"{density.launches} (vorticity and no xsph: one a step each); PBF kernel launches on "
+          f"the card {folds} (the vorticity configuration launches both vorticity kernels "
+          f"once a step)")
     for name, (s, b) in card.items():
         sc, bc = cpu[name]
         cap = s.state.capacity
@@ -1415,6 +1632,7 @@ def phase_d2() -> None:
         print(f"  {name:16s} card vs CPU: max {int(d.max())} count, {share:.2e} of pixels differ "
               f"(bound 1 count on {U8_SHARE:g}); {int((want > 0).sum())} lit")
         check(int(d.max()) <= 1 and share <= U8_SHARE, f"{name}: card differs from the CPU")
+    return folds
 
 
 def path_kernels():
@@ -1652,14 +1870,20 @@ def phase_e3(b_ms: float) -> None:
                    "E3 one epoch of 10 steps")
 
     reset_launches()
+    reset_pbf()
+    # ---- PBF epochs at 1M: counts start at 0 here ----
     t0 = time.perf_counter()
     st, overflow = run_lib.run_epochs(p, g, s.state, em, obs, E3_PBF_STEPS, 1,
                                       pbf_params=pbf.flagship_params())
     torch.cuda.synchronize()
+    folds = read_pbf()
+    # ---- counts read here ----
     print(f" PBF flagship, 1 epoch of {E3_PBF_STEPS} steps with the sphere: "
           f"{(time.perf_counter() - t0) * 1e3 / E3_PBF_STEPS:.1f} ms/step, launches "
-          f"{read_launches()}")
+          f"{read_launches()}, PBF kernels {folds}")
     check_in_box(p, st, overflow, "E3 PBF")
+    check(folds["lambda"] == folds["dx"] == 2 * E3_PBF_STEPS
+          and folds["density_xsph"] == E3_PBF_STEPS, f"E3: PBF kernel launches {folds}")
     del st, s
 
     s = dam_break_3d(E3_PBF_N, device="cuda")
@@ -2263,12 +2487,22 @@ def phase_g4() -> None:
     from sph_pie_torch.parallel import dryrun
 
     buf = io.StringIO()
+    reset_pbf()
+    # ---- the dry run: counts start at 0 here ----
     with contextlib.redirect_stdout(buf):
         out = dryrun.dryrun_multichip(G_BAL_SHARDS, device="cuda")
+    folds = read_pbf()
+    # ---- counts read here ----
     gline(f"== Phase G4: dryrun_multichip({G_BAL_SHARDS}) on the card")
     for line in buf.getvalue().splitlines():
         gline(f"  {line}")
+    # the PBF leg (a 2D dam break without XSPH): 2 flagship steps on the mesh,
+    # a launch a shard a fold, then the same 2 steps on the whole grid
+    want = {"lambda": 2 * 2 * (G_BAL_SHARDS + 1), "dx": 2 * 2 * (G_BAL_SHARDS + 1),
+            "density_xsph": 0, "vorticity": 0, "vorticity_eta": 0}
+    gline(f"  PBF kernel launches of the dry run: {folds} (the PBF leg's: {want})")
     check(set(out) == {"balanced", "shape", "pbf", "periodic"}, "G4: a leg is missing")
+    check(folds == want, f"G4: PBF kernel launches {folds}, want {want}")
 
 
 def phase_g5() -> None:
@@ -2475,14 +2709,22 @@ def phase_h1(b_ms: float) -> dict:
             check(step == H_STEPS and n_ckpt == rows[-1]["n_active"], "H1: the checkpoint")
             del st, params
 
+            reset_pbf()
+            # ---- the PBF run: counts start at 0 here ----
             pbf, pbf_wall = c.execute("h1-pbf", "dam_break_3d",
                                       {"n_target": H_PBF_N, "solver": "pbf"}, H_PBF_STEPS,
                                       H_PBF_STEPS // 2)
+            folds = read_pbf()
+            # ---- counts read here ----
             last = pbf["steps"][-1]
             gline(f"  PBF run (solver pbf, dam_break_3d({H_PBF_N:_})): {pbf['status']} in "
                   f"{pbf_wall:.2f} s, steps {[r['step'] for r in pbf['steps']]}, n_active "
                   f"{last['n_active']}, overflow {last['overflow']}, kinetic energy "
-                  f"{last['kinetic_energy']:.4e}")
+                  f"{last['kinetic_energy']:.4e}, PBF kernel launches {folds}")
+            iters = folds["lambda"] // H_PBF_STEPS
+            check(folds["density_xsph"] == H_PBF_STEPS and iters > 0
+                  and folds["lambda"] == folds["dx"] == iters * H_PBF_STEPS,
+                  f"H1: PBF kernel launches {folds}")
             check(last["overflow"] == 0 and last["kinetic_energy"] > 0
                   and [r["step"] for r in pbf["steps"]] == [H_PBF_STEPS // 2, H_PBF_STEPS],
                   "H1: the PBF run")
@@ -2595,7 +2837,8 @@ def phase_h3() -> None:
     gline(f"  {r['particles']} particles, {r['steps']} steps on {r['device']}: max |dx| "
           f"{r['max_abs_dx']:.3e}, rms {r['rms']:.3e} against the {r['oracle']} oracle (bound "
           f"{r['tol']:g}), overflow {r['overflow']}, launches {r['launches']}; engine "
-          f"{r['engine_s']:.2f} s, oracle {r['oracle_s']:.2f} s")
+          f"{r['engine_s']:.2f} s, oracle {r['oracle_s']:.2f} s; final positions' digests: "
+          f"engine {r['engine_digest']}, oracle {r['oracle_digest']}")
     check(r["ok"] and r["device"].startswith("cuda") and r["oracle"] == "native"
           and r["max_abs_dx"] < 1e-3 and r["overflow"] == 0
           and r["launches"]["density"] == r["launches"]["forces"] == r["steps"] == 1000,
@@ -2618,7 +2861,7 @@ def main() -> int:
     torch.manual_seed(0)
     seconds = {}
     with torch.no_grad():
-        for name, phase in (("A", phase_a), ("A micro", phase_a_micro)):
+        for name, phase in (("A", phase_a), ("A micro", phase_a_micro), ("A pbf", phase_a_pbf)):
             t0 = time.perf_counter()
             phase()
             seconds[name] = time.perf_counter() - t0
@@ -2629,7 +2872,16 @@ def main() -> int:
         rows += phase_c(main_path)
         seconds["C"] = time.perf_counter() - t0
         del main_path
-        for name, phase in (("D1", phase_d1), ("D2", phase_d2), ("E1", phase_e1),
+        t0 = time.perf_counter()
+        pbf_rows = phase_d1()
+        seconds["D1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d2_folds = phase_d2()
+        seconds["D2"] = time.perf_counter() - t0
+        for op in ("vorticity", "vorticity_eta"):  # their path: D2's vorticity configuration
+            pbf_rows[op]["launches"] = d2_folds[op]
+        rows += list(pbf_rows.values())
+        for name, phase in (("E1", phase_e1),
                             ("E2", phase_e2), ("E3", lambda: phase_e3(b_ms)), ("E4", phase_e4)):
             t0 = time.perf_counter()
             phase()

@@ -51,6 +51,12 @@ _SIGNATURES = {
         f"sph_density_{t}": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _P]
         for t in ("f32", "f64")
     },
+    # pbf: op, pos, mass, a, b, prm, out0, out1, S, cap, dim, s0, s1, first
+    # home cell, home cells, the artificial-pressure exponent
+    **{
+        f"sph_pbf_{t}": [_I] + [_P] * 7 + [_L, _I, _I, _L, _L, _L, _L, _I, _P]
+        for t in ("f32", "f64")
+    },
     **{
         f"sph_forces_{t}": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P

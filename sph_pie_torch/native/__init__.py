@@ -1,16 +1,19 @@
 """ctypes binding + lazy build of the native C++ oracle.
 
 ``oracle.cpp`` is compiled with g++ on first use (-O3 -fopenmp) into
-``sph_pie_torch/_build/``, under a name keyed by a hash of the source and
-the flags that built it, written to a temporary name and renamed, so
-concurrent builders never load a torn file. Without a toolchain
-``available()`` is False and ``build_error()`` says why. ``gxx_build`` also
+``sph_pie_torch/_build/``, under a name keyed by a hash of the source, the
+flags that built it and the host's CPU as ``-march=native`` resolves it (so
+a ``_build/`` copied to another host is never reused there), written to a
+temporary name and renamed, so concurrent builders never load a torn file.
+Without a toolchain ``available()`` is False and ``build_error()`` says
+why. ``gxx_build`` also
 builds the piedb document server (``service/storage/piedb_provider.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -39,6 +42,27 @@ PARAMS_LAYOUT = (
 ).split()
 
 
+@functools.cache
+def host_cpu() -> str:
+    """The host's CPU as g++ sees it: the target options (``-march=`` and
+    every ISA extension) that ``-march=native`` turns on here; empty
+    without g++."""
+    try:
+        out = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                             capture_output=True, text=True, timeout=60)
+    except (subprocess.SubprocessError, OSError):
+        return ""
+    return out.stdout if out.returncode == 0 else ""
+
+
+def build_path(src: Path, stem: str, suffix: str, cmd: list[str]) -> Path:
+    """``BUILD_DIR/<stem>-<hash><suffix>``: the hash keys the command, the
+    source and the host's CPU."""
+    digest = hashlib.sha256(" ".join(cmd).encode() + src.read_bytes())
+    digest.update(host_cpu().encode())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}{suffix}"
+
+
 def gxx_build(src: Path, stem: str, suffix: str, flag_sets, extra=()) -> tuple[Path | None, str | None]:
     """Compile ``src`` with the first of ``flag_sets`` that works (plus
     ``extra``) into ``BUILD_DIR/<stem>-<hash><suffix>``; an existing output
@@ -48,8 +72,7 @@ def gxx_build(src: Path, stem: str, suffix: str, flag_sets, extra=()) -> tuple[P
     with _lock:
         for flags in flag_sets:
             cmd = ["g++", *flags, *extra, str(src)]
-            digest = hashlib.sha256(" ".join(cmd).encode() + src.read_bytes()).hexdigest()[:16]
-            out = BUILD_DIR / f"{stem}-{digest}{suffix}"
+            out = build_path(src, stem, suffix, cmd)
             if out.exists():
                 return out, None
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

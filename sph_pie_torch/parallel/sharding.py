@@ -25,7 +25,8 @@ partitioner would do:
 The same windows in the same order give each home slot the single-device
 kernel's sums, so the step's results are the single-device step's. The
 shards are updated in place. ``sharded_pbf_simulate`` runs the PBF step on
-the global layout with its folds sharded (``mesh_fold``).
+the global layout with its folds sharded (``mesh_fold``: each shard
+launches the ``csrc/pbf.cu`` kernels on its home range).
 """
 
 from __future__ import annotations
@@ -270,15 +271,17 @@ def sharded_simulate(mesh: comm.Mesh, params: FluidParams, grid: nb.BinnedGrid, 
 
 
 def mesh_fold(mesh: comm.Mesh, grid: nb.BinnedGrid):
-    """A ``binned.slab_fold`` over the mesh: each call splits its whole
-    input fields into the shards of ``equal_splits``, exchanges their edge
-    rows, folds each shard's home cells with its margins as halos and
-    gathers the outputs (whole, on every rank)."""
+    """The route of PBF's folds over the mesh: ``fold(fn, *args, **fields)``
+    splits each whole per-slot field into the shards of ``equal_splits``,
+    exchanges their margins, calls the ``neighbors.pbf_folds`` function
+    ``fn(*args, **buffers, home=s.home)`` on each shard (its kernel on the
+    card, on the shard's home range) and gathers each output (whole, on
+    every rank)."""
     layout = comm.make_layout(
         equal_splits(grid.num_cells, mesh.n), grid.cap, nb.halo_cells(grid)
     )
 
-    def fold(g, fields, pair_fn, init):
+    def fold(fn, *args, **fields):
         specs = {k: (tuple(v.shape[1:]), v.dtype) for k, v in fields.items()}
         shards = comm.make_shards(mesh, layout, specs, {})
         for k, x in fields.items():
@@ -286,13 +289,13 @@ def mesh_fold(mesh: comm.Mesh, grid: nb.BinnedGrid):
                 s.field(k).copy_(part)
         comm.exchange(mesh, shards, tuple(fields))
         parts = []
-        for s, *inits in zip(shards, *(comm.split(mesh, layout, a) for a in init)):
-            local = {k: s.field(k) for k in fields}
-            halo = ({k: s.lo(k) for k in fields}, {k: s.hi(k) for k in fields})
-            parts.append(nb.slab_fold(g, local, pair_fn, inits, halo=halo, local_cells=s.cells))
-        return tuple(
-            comm.gather(mesh, layout, [p[j] for p in parts]) for j in range(len(init))
+        for s in shards:
+            out = fn(*args, **s.buf, home=s.home)
+            parts.append(out if isinstance(out, tuple) else (out,))
+        whole = tuple(
+            comm.gather(mesh, layout, [p[j] for p in parts]) for j in range(len(parts[0]))
         )
+        return whole if len(whole) > 1 else whole[0]
 
     return fold
 

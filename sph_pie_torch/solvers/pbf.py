@@ -12,12 +12,14 @@ constants, arithmetic order and update order. A step:
   (optionally vorticity confinement first).
 
 ``maybe_rebin`` runs before every fold (``iters + 2`` host decisions a
-step), since particles move between folds. The folds are PyTorch over
-``binned.slab_fold`` on every device; the final density of the
-configurations without the fused fold goes through
-``neighbors.density.density`` (the ``density`` CUDA kernel on the card).
+step), since particles move between folds. The five pair folds are
+``neighbors.pbf_folds``: the ``csrc/pbf.cu`` kernels on the card, which
+read nothing back to the host, and their plain versions over
+``binned.slab_fold`` on the CPU. The final density of the configurations
+without the fused fold goes through ``neighbors.density.density`` (the
+``density`` CUDA kernel on the card).
 
-Empty slots: the fold gives the slots of empty cells 0 where the reference
+Empty slots: the folds give the slots of empty cells 0 where the reference
 computes a sum from position 0. Their values reach nothing: every window
 term carries ``m_j = 0`` and every update is masked by the slots that move.
 """
@@ -29,9 +31,11 @@ import dataclasses
 import torch
 
 from sph_pie_torch.core.params import FluidParams
-from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
+from sph_pie_torch.neighbors import pbf_folds as pf
 from sph_pie_torch.neighbors.density import density
+from sph_pie_torch.neighbors.pbf_folds import integer_pow as _integer_pow  # noqa: F401 (tests/test_torch_pbf.py)
+from sph_pie_torch.neighbors.pbf_folds import inv_r_of as _inv_r
 from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
 from sph_pie_torch.solvers.wcsph_binned import maybe_rebin, wall_axes
@@ -115,163 +119,53 @@ def flagship_params(**overrides) -> PbfParams:
     return make_pbf_params(**cfg)
 
 
-def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x**n for a static int n >= 1 by repeated squaring, in the order of
-    the reference's ``lax.integer_pow``."""
-    acc = None
-    while n > 0:
-        if n & 1:
-            acc = x if acc is None else acc * x
-        n >>= 1
-        if n > 0:
-            x = x * x
-    return acc
+def _pos(fields: dict, dim: int) -> torch.Tensor:
+    """[S, dim] positions of a fold's fields: ``pos``, or the planar
+    ``p0 ..`` components of the reference's signature. The planar form, and
+    the re-export of ``_integer_pow``, serve only
+    ``tests/test_torch_pbf.py::test_folds_match_reference`` and
+    ``test_integer_pow_is_repeated_squaring``, which call these helpers as
+    the reference's; they go with that test's next rewrite."""
+    if "pos" in fields:
+        return fields["pos"]
+    return torch.stack([fields[f"p{k}"] for k in range(dim)], dim=-1)
 
 
-def _inv_r(r2: torch.Tensor) -> torch.Tensor:
-    return torch.rsqrt(torch.clamp(r2, min=1e-12))
+def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=pf.whole_grid):
+    """(lambda, rho) per slot from one fold over the predicted positions
+    (``fields``: pos and mass)."""
+    return fold(pf.lambda_fold, params, pbf, grid, pos=_pos(fields, params.dim),
+                mass=fields["mass"])
 
 
-def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=nb.slab_fold):
-    """(lambda, rho) per slot from one slab fold over predicted positions.
-
-    No per-pair divide or mask: the kernel cut-offs zero far pairs, d == 0
-    zeroes the self pair's gradient, empty slots carry mass 0; the 1/rho0
-    factors are applied once, after the fold."""
-    dim, h = params.dim, params.h
-    rho0 = params.rest_density
-
-    def pair(carry, hm, w):
-        rho, grad_sq, *grad_sum = carry
-        d, r2 = nb._r2(dim, hm, w)
-        inv_r = _inv_r(r2)
-        r = r2 * inv_r
-        m_j = w["mass"][:, None, :]
-        wk = smoothing.poly6(dim, h, r2)
-        rho = rho + (m_j * wk).sum(2)  # self pair included
-        gw = smoothing.spiky_grad_mag(dim, h, r) * inv_r
-        coef = m_j * gw                # m_j grad_i W_ij (times rho0 later)
-        gs = []
-        for k in range(dim):
-            g_k = coef * d[k]
-            grad_sq = grad_sq + (g_k * g_k).sum(2)
-            gs.append(g_k.sum(2))
-        return (rho, grad_sq) + tuple(a + g for a, g in zip(grad_sum, gs))
-
-    zero = torch.zeros_like(fields["mass"])
-    rho, grad_sq, *grad_sum = fold(grid, fields, pair, (zero,) * (2 + dim))
-    # |sum grad|^2 + sum |grad|^2 (the CFM denominator), with 1/rho0^2 here
-    inv_rho0 = 1.0 / rho0
-    denom = grad_sq
-    for k in range(dim):
-        denom = denom + grad_sum[k] * grad_sum[k]
-    denom = denom * (inv_rho0 * inv_rho0)
-    # Unclamped constraint: stretched regions attract.
-    c = rho * inv_rho0 - 1.0
-    lam = -c / (denom + pbf.relax_eps)
-    return lam, rho
-
-
-def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=nb.slab_fold):
+def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=pf.whole_grid):
     """[S, dim] position corrections from the lambdas (``fields["lam"]``),
     with the artificial pressure -k h^2 (W / W(dq h))^n."""
-    dim, h = params.dim, params.h
-    rho0 = params.rest_density
-    w_dq = smoothing.poly6(dim, h, (pbf.s_corr_dq * h) ** 2)
-    inv_wdq = 1.0 / w_dq
-    neg_k_h2 = -(pbf.s_corr_k * h * h)
-
-    def pair(carry, hm, w):
-        d, r2 = nb._r2(dim, hm, w)
-        inv_r = _inv_r(r2)
-        r = r2 * inv_r
-        m_j = w["mass"][:, None, :]
-        wk = smoothing.poly6(dim, h, r2)
-        s_corr = neg_k_h2 * _integer_pow(wk * inv_wdq, pbf.s_corr_n)
-        lam_sum = hm["lam"][:, :, None] + w["lam"][:, None, :] + s_corr
-        gw = smoothing.spiky_grad_mag(dim, h, r) * inv_r
-        coef = (m_j * lam_sum) * gw
-        return tuple(c_k + (coef * d[k]).sum(2) for k, c_k in enumerate(carry))
-
-    zero = torch.zeros_like(fields["mass"])
-    dxs = fold(grid, fields, pair, (zero,) * dim)
-    return torch.stack(dxs, dim=-1) * (1.0 / rho0)
+    return fold(pf.dx_fold, params, pbf, grid, pos=_pos(fields, params.dim),
+                mass=fields["mass"], lam=fields["lam"])
 
 
-def _density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho, fold=nb.slab_fold):
-    """One fold for the density and the XSPH sum: (rho_raw, dv).
-
-    ``m_rho`` is the Monaghan weight m_j / rho_j with rho_j the previous
-    step's final density. Moment form: sum_j w_j W (v_j - v_i) =
-    S1 - v_i S0, with S0 = sum_j w_j W and S1 = sum_j w_j W v_j."""
-    dim, h = params.dim, params.h
-
-    def pair(carry, hm, w):
-        rho, s0, *s1 = carry
-        _, r2 = nb._r2(dim, hm, w)
-        wk = smoothing.poly6(dim, h, r2)
-        mw = w["mass"][:, None, :] * wk
-        ww = w["m_rho"][:, None, :] * wk
-        rho = rho + mw.sum(2)
-        s0 = s0 + ww.sum(2)
-        return (rho, s0) + tuple(
-            s + (ww * w[f"v{k}"][:, None, :]).sum(2) for k, s in enumerate(s1)
-        )
-
-    fields = {**nb._planar("p", pos), **nb._planar("v", vel), "mass": mass, "m_rho": m_rho}
-    zero = torch.zeros_like(mass)
-    rho, s0, *s1 = fold(grid, fields, pair, (zero,) * (2 + dim))
-    return rho, torch.stack(s1, dim=-1) - vel * s0[:, None]
+def _density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho, fold=pf.whole_grid):
+    """One fold for the density and the XSPH sum: (rho_raw, dv). ``m_rho``
+    is the Monaghan weight m_j / rho_j with rho_j the previous step's final
+    density."""
+    return fold(pf.density_xsph_fold, params, grid, pos=pos, vel=vel, mass=mass, m_rho=m_rho)
 
 
-def _vorticity_fold(params: FluidParams, grid, pos, vel, mass, rho, fold=nb.slab_fold):
+def _vorticity_fold(params: FluidParams, grid, pos, vel, mass, rho, fold=pf.whole_grid):
     """omega_i = sum_j (m/rho)_j (v_j - v_i) x grad_i W_ij (spiky gradient):
     [S, 3] in 3D, the scalar z-curl [S, 1] in 2D."""
-    dim, h = params.dim, params.h
     m_rho = mass / torch.maximum(rho, 1e-6 * params.rest_density)
-
-    def pair(carry, hm, w):
-        d, r2 = nb._r2(dim, hm, w)
-        inv_r = _inv_r(r2)
-        r = r2 * inv_r
-        gw = smoothing.spiky_grad_mag(dim, h, r) * inv_r
-        coef = w["m_rho"][:, None, :] * gw
-        dv = [w[f"v{k}"][:, None, :] - hm[f"v{k}"][:, :, None] for k in range(dim)]
-        g = [coef * d[k] for k in range(dim)]
-        if dim == 3:
-            terms = (
-                dv[1] * g[2] - dv[2] * g[1],
-                dv[2] * g[0] - dv[0] * g[2],
-                dv[0] * g[1] - dv[1] * g[0],
-            )
-        else:
-            terms = (dv[0] * g[1] - dv[1] * g[0],)
-        return tuple(c + t.sum(2) for c, t in zip(carry, terms))
-
-    fields = {**nb._planar("p", pos), **nb._planar("v", vel), "mass": mass, "m_rho": m_rho}
-    zero = torch.zeros_like(mass)
-    out = fold(grid, fields, pair, (zero,) * (3 if dim == 3 else 1))
-    return torch.stack(out, dim=-1)
+    return fold(pf.vorticity_fold, params, grid, pos=pos, vel=vel, mass=mass, m_rho=m_rho)
 
 
-def _vorticity_force(params: FluidParams, grid, pos, mass, rho, omega, fold=nb.slab_fold):
+def _vorticity_force(params: FluidParams, grid, pos, mass, rho, omega, fold=pf.whole_grid):
     """f = N x omega, N = eta / |eta|, eta_i = sum_j (m/rho)_j |omega_j|
     grad_i W_ij (towards higher vorticity)."""
-    dim, h = params.dim, params.h
+    dim = params.dim
     m_rho = mass / torch.maximum(rho, 1e-6 * params.rest_density)
     wmag = torch.sqrt(torch.clamp((omega * omega).sum(-1), min=0.0))
-
-    def pair(carry, hm, w):
-        d, r2 = nb._r2(dim, hm, w)
-        inv_r = _inv_r(r2)
-        r = r2 * inv_r
-        gw = smoothing.spiky_grad_mag(dim, h, r) * inv_r
-        coef = w["m_rho"][:, None, :] * w["wmag"][:, None, :] * gw
-        return tuple(c + (coef * d[k]).sum(2) for k, c in enumerate(carry))
-
-    fields = {**nb._planar("p", pos), "mass": mass, "m_rho": m_rho, "wmag": wmag}
-    zero = torch.zeros_like(mass)
-    eta = torch.stack(fold(grid, fields, pair, (zero,) * dim), dim=-1)
+    eta = fold(pf.vorticity_eta_fold, params, grid, pos=pos, mass=mass, m_rho_w=m_rho * wmag)
     n_hat = eta * _inv_r((eta * eta).sum(-1, keepdim=True))
     if dim == 3:
         return torch.linalg.cross(n_hat, omega, dim=-1)
@@ -291,11 +185,13 @@ def step(
     pbf: PbfParams,
     b: nb.BinnedState,
     obstacles=None,
-    fold=nb.slab_fold,
+    fold=pf.whole_grid,
 ) -> nb.BinnedState:
     """One PBF step in binned space (see the module docstring). Every fold
-    goes through ``fold``, ``binned.slab_fold``'s signature
-    (``parallel.sharding.mesh_fold`` folds over a mesh of shards).
+    is a call ``fold(fn, *args, **fields)`` of a ``neighbors.pbf_folds``
+    function on whole-grid per-slot fields: ``pbf_folds.whole_grid`` runs
+    it on the whole grid, ``parallel.sharding.mesh_fold`` on each shard of
+    a mesh.
 
     On a periodic grid every rebin check is followed by ``wrap_ghosts``,
     walls and the box projection act on the wall axes only, and the final
@@ -355,7 +251,7 @@ def step(
     for _ in range(pbf.iters):
         b = rebin_check(b, light=not ride, carry_density=ride)
         v = fmask(b)
-        fields = {**nb._planar("p", b.pos), "mass": b.mass}
+        fields = {"pos": b.pos, "mass": b.mass}
         lam, _ = _lambda_fold(params, pbf, grid, fields, fold)
         dx = pbf.sor * _dx_fold(params, pbf, grid, {**fields, "lam": lam}, fold)
         n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
@@ -421,7 +317,7 @@ def simulate(
     b: nb.BinnedState,
     n_steps: int,
     obstacles=None,
-    fold=nb.slab_fold,
+    fold=pf.whole_grid,
 ) -> nb.BinnedState:
     """Roll ``n_steps`` steps."""
     for _ in range(int(n_steps)):

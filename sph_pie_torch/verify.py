@@ -6,11 +6,13 @@ C++ oracle (the NumPy one where no C++ toolchain is found), within 1e-3.
 float64 arms of ``density.cu`` and ``forces.cu``); ``--device cpu`` runs
 the plain versions. ``run`` takes the size and the steps, so tests run it
 small. It prints which oracle ran, the error, the launches of the
-engine's kernels and both times, and returns them.
+engine's kernels, both times and a digest of each side's final positions
+(so two runs show which side moved), and returns them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 
 import numpy as np
@@ -30,6 +32,12 @@ N_TARGET = 4096
 STEPS = 1000
 TOL = 1e-3
 KERNELS = (density, forces, expand)
+
+
+def digest(pos: np.ndarray) -> str:
+    """16 hex digits of the SHA-256 of float64 positions: equal bits, equal
+    digest."""
+    return hashlib.sha256(np.ascontiguousarray(pos, np.float64).tobytes()).hexdigest()[:16]
 
 
 def run(n_target: int = N_TARGET, steps: int = STEPS,
@@ -66,10 +74,13 @@ def run(n_target: int = N_TARGET, steps: int = STEPS,
     err = float(np.abs(got - want).max())
     rms = float(np.sqrt(((got - want) ** 2).mean()))
     ok = err < TOL and overflow == 0
+    digests = {"engine_digest": digest(got), "oracle_digest": digest(want)}
+    print(f"final positions: engine digest {digests['engine_digest']}, oracle digest "
+          f"{digests['oracle_digest']}", flush=True)
     print(f"max |dx| = {err:.3e}  rms = {rms:.3e}  tol = {TOL}  -> "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     return {
         "ok": ok, "device": str(device), "particles": n, "steps": steps, "tol": TOL,
         "max_abs_dx": err, "rms": rms, "overflow": overflow, "launches": launches,
-        "oracle": oracle, "engine_s": engine_s, "oracle_s": oracle_s,
+        "oracle": oracle, "engine_s": engine_s, "oracle_s": oracle_s, **digests,
     }

@@ -129,3 +129,27 @@ def test_verify_holds_the_contract_small(both_native, capsys):
     assert out["launches"] == {"density": 0, "forces": 0, "expand": 0}
     assert any(line.startswith("oracle: native C++") for line in lines)
     assert lines[-1].endswith("PASS")
+
+
+def test_verify_digests_repeat(both_native, capsys):
+    """Two ``verify.run``s of one small contract print and return the same
+    16-hex-digit digests of the engine's and the oracle's final positions."""
+    a = verify.run(n_target=N, steps=20, device="cpu")
+    b = verify.run(n_target=N, steps=20, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    for k in ("engine_digest", "oracle_digest"):
+        assert a[k] == b[k] and len(a[k]) == 16 and int(a[k], 16) >= 0
+    assert sum(line == f"final positions: engine digest {a['engine_digest']}, oracle digest "
+               f"{a['oracle_digest']}" for line in lines) == 2
+
+
+def test_native_build_name_keys_the_host_cpu(monkeypatch):
+    """The oracle's build name changes with the host's CPU (what
+    ``-march=native`` resolves to), so a ``_build/`` copied from another
+    host is not reused."""
+    cmd = ["g++", *tnative._ORACLE_FLAGS[0], str(tnative._SRC)]
+    names = set()
+    for cpu in ("-march= skylake-avx512", "-march= sapphirerapids"):
+        monkeypatch.setattr(tnative, "host_cpu", lambda cpu=cpu: cpu)
+        names.add(tnative.build_path(tnative._SRC, "liboracle", ".so", cmd).name)
+    assert len(names) == 2 and all(n.startswith("liboracle-") for n in names)
