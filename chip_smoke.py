@@ -41,9 +41,12 @@ give).
 
 Phase A then holds the five PBF kernels (``csrc/pbf.cu``: lambda, dx,
 density+XSPH, vorticity and its eta) against their plain folds on the 3D
-100k state in float32, on the 2D 4096 and a 3D 20k in float64, and with
-``home=`` a proper sub-range of a buffer cut from the grid against the same
-rows of the whole grid, bit for bit.
+100k state in float32, on the 2D 4096 and a 3D 20k in float64, the last
+also rebinned at caps 52 and 128 (dx walking
+the hit words of the lambda kernel, as the step runs it), dx through those
+words against dx's own distance tests bit for bit, and with ``home=`` a
+proper sub-range of a buffer cut from the grid against the same rows of
+the whole grid, bit for bit (dx walking the whole grid's words, cut).
 
 Phase B drives the main path at the flagship size — ``dam_break_3d(1M)``,
 ``bin_state``, 5 warm steps, 3 timed reps of 20 steps — with every launch
@@ -69,10 +72,11 @@ device, 5 warm steps and 3 timed reps of 20 (Phase B's), with the launch
 counters of ``expand``, ``density`` and the five PBF kernels
 (``csrc/pbf.cu``) reset just before and read just after; it prints
 ms/step, particle-steps/s, rebins and checks, host syncs, peak memory and
-a ``torch.profiler`` window of 5 more steps, then checks that the PBF
-kernels' launchers make no host sync, holds each
-against its plain fold on the final state and times each fold and one
-frame there. D2 runs ``dam_break_3d(20k)`` for 5 PBF steps on the card (the
+a ``torch.profiler`` window of 5 more steps, checks that every dx launch
+walked its lambda's hit words, then checks that the PBF kernels' launchers
+make no host sync, holds each against its plain fold (and dx through the
+words against its test walk) on the final state and times each fold, dx's
+test walk and one frame there. D2 runs ``dam_break_3d(20k)`` for 5 PBF steps on the card (the
 kernels) and on the CPU (the plain folds) under the flagship, the "gather"
 epilogue, vorticity confinement (whose final density is the ``density``
 kernel, and which launches both vorticity kernels) and a scene without
@@ -130,7 +134,8 @@ against their plain twins, a rebin over the mesh against the single
 card's, and times the step with its exchanges and then its pair kernels
 taken out. G2 runs the balanced step on 8 shards (density and positions
 against the single card), G3 steps the 16M dam break's grid geometry on 8
-shards, G4 runs ``dryrun_multichip(8)``, and G5 a process group on NCCL
+shards, G4 runs ``dryrun_multichip(8)`` (its PBF leg's dx launches all
+walking their lambda's hit words across the mesh), and G5 a process group on NCCL
 of one rank per card, in this process, against the in-process mesh.
 
 Phase H drives the service (``sph_pie_torch/service/``) on the card. H1
@@ -1053,18 +1058,20 @@ def pbf_calls(params, grid, pp, b) -> dict:
     state ``b``. The inputs one fold takes from another (lambda, rho,
     omega) are the plain versions', so each kernel is held on its own; the
     XSPH weight is m / rho of the state's density (rest density where it
-    has none)."""
+    has none). dx takes the hit words of the lambda kernel on ``b``, as in
+    the step (its plain version ignores them)."""
     from sph_pie_torch.neighbors import pbf_folds as pf
 
     pos, vel, mass = b.pos, b.vel, b.mass
     lam, rho = pf.lambda_fold_plain(params, pp, grid, pos, mass)
+    _, _, words = pf.lambda_fold(params, pp, grid, pos, mass)
     m_rho = mass / torch.where(b.density > 0, b.density, params.rest_density)
     m_rho_v = mass / torch.maximum(rho, 1e-6 * params.rest_density)
     omega = pf.vorticity_fold_plain(params, grid, pos, vel, mass, m_rho_v)
     wmag = torch.sqrt(torch.clamp((omega * omega).sum(-1), min=0.0))
     return {
         "lambda": (pf.lambda_fold, pf.lambda_fold_plain, (params, pp, grid, pos, mass)),
-        "dx": (pf.dx_fold, pf.dx_fold_plain, (params, pp, grid, pos, mass, lam)),
+        "dx": (pf.dx_fold, pf.dx_fold_plain, (params, pp, grid, pos, mass, lam, words)),
         "density_xsph": (pf.density_xsph_fold, pf.density_xsph_fold_plain,
                          (params, grid, pos, vel, mass, m_rho)),
         "vorticity": (pf.vorticity_fold, pf.vorticity_fold_plain,
@@ -1078,20 +1085,45 @@ def as_tuple(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
 
 
+def popcount(words: torch.Tensor) -> int:
+    """Set bits of an int32 tensor."""
+    return sum(int(((words >> k) & 1).sum()) for k in range(32))
+
+
+def pbf_words_walk(params, grid, pp, b, calls: dict) -> None:
+    """dx through the lambda kernel's hit words against dx's own distance
+    tests on state ``b``: equal bit for bit on every slot; the words' set
+    bits on the occupied slots beside the pairs in support."""
+    from sph_pie_torch.neighbors import pbf_folds as pf
+
+    kernel, _, args = calls["dx"]
+    words = args[-1]
+    walked, tested = kernel(*args), kernel(*args[:-1])
+    same = torch.equal(walked, tested)
+    occ = b.mass != 0
+    bits = popcount(words[occ])
+    pairs = pairs_in_support(grid, b, params.h * params.h)
+    print(f"  pbf dx through lambda's words ({words.shape[1]} a slot, "
+          f"{pf.words_per_slot(grid.dim, grid.cap)} by the rule; {bits} bits set, pairs in "
+          f"support by the plain r^2 test {pairs}) equal bit for bit to dx's test walk: {same}")
+    check(same, "pbf dx through lambda's words differs from dx's test walk")
+
+
 def compare_pbf(params, grid, pp, b, atol: float) -> tuple[dict, dict]:
     """Each PBF kernel against its plain fold on state ``b``, on the
     occupied slots (densities relative, the rest scale-normalised), and 0 on
-    every empty slot; raises past ``atol``. Returns ({op: max abs error},
-    {op: plain ms})."""
+    every empty slot; raises past ``atol``; then dx through lambda's words
+    against dx's test walk. Returns ({op: max abs error}, {op: plain
+    ms})."""
     from sph_pie_torch.neighbors import pbf_folds as pf
 
     occ = b.mass != 0
     errs, plain_ms = {}, {}
     calls = pbf_calls(params, grid, pp, b)
     for op, (kernel, plain, args) in calls.items():
-        got = as_tuple(kernel(*args))
         want, plain_ms[op] = timed(lambda: plain(*args))
         want = as_tuple(want)
+        got = as_tuple(kernel(*args))[:len(want)]  # lambda's words: pbf_words_walk
         parts, worst, errs[op] = [], 0.0, 0.0
         for k, (g_, w_) in enumerate(zip(got, want)):
             density = (op, k) in (("lambda", 1), ("density_xsph", 0))
@@ -1118,33 +1150,39 @@ def compare_pbf(params, grid, pp, b, atol: float) -> tuple[dict, dict]:
         empty0 = all(bool((g_[~occ] == 0).all()) for g_ in got)
         print(f"  pbf {op:13s} {', '.join(parts)} (bound {atol:g}); empty slots 0: {empty0}")
         check(worst <= atol and empty0, f"pbf {op} kernel disagrees")
+    pbf_words_walk(params, grid, pp, b, calls)
     return errs, plain_ms
 
 
 def pbf_home_range(params, grid, pp, b) -> None:
     """The five kernels with ``home=`` a proper sub-range of a buffer cut
     from the whole grid (its cells with a halo's margin each side): the
-    same rows as the whole-grid launch, bit for bit."""
+    same rows as the whole-grid launch, bit for bit (lambda's hit words on
+    the occupied slots: the rows of empty slots are not written); dx walks
+    the whole grid's words, cut as its other inputs."""
     from sph_pie_torch.neighbors import binned as nb
 
     C, cap, S, hc = grid.num_cells, grid.cap, grid.num_slots, nb.halo_cells(grid)
     first, count = C // 3, C // 4
     lo, hi = first - hc, first + count + hc
     rows = slice(lo * cap, hi * cap)
+    occ = b.mass[first * cap:(first + count) * cap] != 0
     same = {}
     for op, (kernel, _, args) in pbf_calls(params, grid, pp, b).items():
         whole = as_tuple(kernel(*args))
         cut = tuple(a[rows].clone() if isinstance(a, torch.Tensor) and a.shape[:1] == (S,)
                     else a for a in args)
         part = as_tuple(kernel(*cut, home=(first - lo, count)))
-        same[op] = all(torch.equal(p_, w_[first * cap:(first + count) * cap])
-                       for p_, w_ in zip(part, whole))
+        home_rows = [w_[first * cap:(first + count) * cap] for w_ in whole]
+        same[op] = all(torch.equal(p_, w_) if p_.is_floating_point()
+                       else torch.equal(p_[occ], w_[occ]) for p_, w_ in zip(part, home_rows))
     print(f"  pbf home=({first - lo}, {count}) of a buffer of {hi - lo} cells (cells {first} to "
           f"{first + count} of {C}): equal bit for bit to the whole grid's rows: {same}")
     check(all(same.values()), f"pbf kernels on a home range differ: {same}")
 
 
 def phase_a_pbf() -> None:
+    from sph_pie_torch.neighbors import pbf_folds as pf
     from sph_pie_torch.scenes import dam_break_2d, dam_break_3d
     from sph_pie_torch.solvers import pbf, wcsph_binned
     from sph_pie_torch.utils.struct import replace
@@ -1172,6 +1210,15 @@ def phase_a_pbf() -> None:
         check(int(b.overflow) == 0, f"{s.name}: overflow")
         compare_pbf(s.params, s.bgrid, pp, b, atol)
         pbf_home_range(s.params, s.bgrid, pp, b)
+    # caps past 40, where a slab's hit words take more than one group of the
+    # kernels' kGroupWords (4): cap 52 (5 words, stored one by one) and cap
+    # 128 (12 words, 16 bytes at a time), on the last state rebinned
+    for cap in (52, 128):
+        g2, b2 = rebinned(s.bgrid, b, cap)
+        print(f" {s.name}({n}) {dt} rebinned at cap {cap}: {g2.num_slots} slots, "
+              f"{pf.words_per_slot(g2.dim, cap)} hit words a slot")
+        compare_pbf(s.params, g2, pp, b2, atol)
+        pbf_home_range(s.params, g2, pp, b2)
 
 
 def pbf_kernels():
@@ -1183,6 +1230,12 @@ def pbf_kernels():
 def reset_pbf() -> None:
     for k in pbf_kernels():
         k.launches = 0
+    pbf_kernels()[1].word_launches = 0
+
+
+def dx_word_launches() -> int:
+    """dx launches that walked lambda's words since ``reset_pbf``."""
+    return pbf_kernels()[1].word_launches
 
 
 def read_pbf() -> dict:
@@ -1432,6 +1485,7 @@ def pbf_bounds(grid, b, pairs: int) -> dict:
 
 
 def phase_d1() -> dict:
+    from sph_pie_torch.neighbors import pbf_folds as pf
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.expand import expand
     from sph_pie_torch.render import splat
@@ -1468,6 +1522,7 @@ def phase_d1() -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / D_STEPS)
     launches = {"expand": expand.launches, "density": density.launches, **read_pbf()}
+    dx_walks = dx_word_launches()
     # ---- counts read here ----
     peak = torch.cuda.max_memory_allocated()
     run, timed_steps = D_WARM + D_STEPS * D_REPS, D_STEPS * D_REPS
@@ -1479,8 +1534,11 @@ def phase_d1() -> dict:
     print(f" rebins fired {rebins} in {run} steps ({rebins - rebins0} in the timed steps) of "
           f"{(pp.iters + 2) * run} checks ({pp.iters + 2} a step); overflow {int(b.overflow)}")
     print(f" host syncs in timed steps {sum(syncs)} ({sum(syncs) / timed_steps:.2f}/step)")
-    print(f" launches over {run} steps: {launches} (expand: bin_state + one per rebin)")
-    print(f" peak device memory {peak / 2**30:.3f} GiB")
+    print(f" launches over {run} steps: {launches} (expand: bin_state + one per rebin); dx "
+          f"launches through lambda's hit words {dx_walks}")
+    words_gib = g.num_slots * pf.words_per_slot(g.dim, g.cap) * 4 / 2**30
+    print(f" peak device memory {peak / 2**30:.3f} GiB (lambda's hit words {words_gib:.3f} GiB "
+          f"of it, {n * pf.words_per_slot(g.dim, g.cap) * 4 / 2**20:.1f} MiB written)")
 
     frame = splat.render_binned_u8(g, b, **FRAME)
     lit = int((frame > 0).sum())
@@ -1500,6 +1558,8 @@ def phase_d1() -> dict:
           and launches["vorticity"] == launches["vorticity_eta"] == 0,
           f"PBF fold launches {launches}: lambda and dx {pp.iters * run}, density_xsph {run}, "
           f"vorticity 0")
+    check(dx_walks == launches["dx"], f"dx walked lambda's words in {dx_walks} of "
+          f"{launches['dx']} launches")
     check(lit > 0 and int(checksum) > 0, "the frames are dark")
 
     # expand at the row widths of PBF's rebins at 1M: ride (pos | vel |
@@ -1522,6 +1582,9 @@ def phase_d1() -> dict:
     errs, plain_ms = compare_pbf(p, g, pp, b, PBF_FOLD_ATOL)
     fold_ms = {op: cuda_ms(lambda kernel=kernel, args=args: kernel(*args), 10)
                for op, (kernel, _, args) in calls.items()}
+    _, _, dx_args = calls["dx"]
+    print(f" dx ms on the final state: through lambda's words {fold_ms['dx']:.3f}, its test walk "
+          f"(no words) {cuda_ms(lambda: pf.dx_fold(*dx_args[:-1]), 10):.3f} [{card()}]")
     frame_ms = cuda_ms(lambda: splat.render_binned_u8(g, b, **FRAME), 10)
     print(" fold ms on the final state: " + ", ".join(f"{k} {v:.3f}" for k, v in fold_ms.items())
           + f"; frame {frame_ms:.3f} ms [{card()}]")
@@ -2492,6 +2555,7 @@ def phase_g4() -> None:
     with contextlib.redirect_stdout(buf):
         out = dryrun.dryrun_multichip(G_BAL_SHARDS, device="cuda")
     folds = read_pbf()
+    dx_walks = dx_word_launches()
     # ---- counts read here ----
     gline(f"== Phase G4: dryrun_multichip({G_BAL_SHARDS}) on the card")
     for line in buf.getvalue().splitlines():
@@ -2500,9 +2564,11 @@ def phase_g4() -> None:
     # a launch a shard a fold, then the same 2 steps on the whole grid
     want = {"lambda": 2 * 2 * (G_BAL_SHARDS + 1), "dx": 2 * 2 * (G_BAL_SHARDS + 1),
             "density_xsph": 0, "vorticity": 0, "vorticity_eta": 0}
-    gline(f"  PBF kernel launches of the dry run: {folds} (the PBF leg's: {want})")
+    gline(f"  PBF kernel launches of the dry run: {folds} (the PBF leg's: {want}); dx "
+          f"through lambda's hit words {dx_walks}")
     check(set(out) == {"balanced", "shape", "pbf", "periodic"}, "G4: a leg is missing")
     check(folds == want, f"G4: PBF kernel launches {folds}, want {want}")
+    check(dx_walks == folds["dx"], f"G4: dx walked lambda's words in {dx_walks} launches")
 
 
 def phase_g5() -> None:

@@ -57,6 +57,12 @@ _SIGNATURES = {
         f"sph_pbf_{t}": [_I] + [_P] * 7 + [_L, _I, _I, _L, _L, _L, _L, _I, _P]
         for t in ("f32", "f64")
     },
+    # pbf_walk: op, pos, mass, lam, prm, out0, out1, words in, words out, S,
+    # cap, dim, s0, s1, first home cell, home cells, words a row, exponent
+    **{
+        f"sph_pbf_walk_{t}": [_I] + [_P] * 8 + [_L, _I, _I, _L, _L, _L, _L, _I, _I, _P]
+        for t in ("f32", "f64")
+    },
     **{
         f"sph_forces_{t}": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P

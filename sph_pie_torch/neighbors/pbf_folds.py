@@ -21,6 +21,17 @@ for CPU tensors, launches its kernel (``csrc/pbf.cu``, staged over runs of
 cells: ``neighbors/runs.py``) for CUDA tensors, and raises on any other
 device. No launcher reads anything back to the host.
 
+Hit words: on the card ``lambda_fold`` also returns the words of its pair
+walk, [n, ``words_per_slot``] int32, bit b of word w of slab s set when the
+home slot's (32 w + b)-th occupied candidate of that slab's window (its
+three cells, in slot order) lies within h. ``dx_fold`` given those words on
+the same pos, mass and home range walks them and makes no distance test;
+given none it makes its own tests, with the same bits. Words are per-slot
+rows like any output, so ``fold`` carries them from the lambda call to the
+dx call, on a mesh too; the rows of empty slots are not written. The plain
+folds record no words: on the CPU ``words`` has 0 columns, and ``dx_fold``
+ignores it.
+
 All take ``home=(first, count)`` as ``neighbors/density.py`` does: the
 per-slot inputs span a buffer, the outputs its home slots. The plain
 versions give the slots of empty cells 0 and may give other empty slots a
@@ -87,10 +98,16 @@ def _home_rows(grid: nb.BinnedGrid, x: torch.Tensor, home) -> torch.Tensor:
     return x[first * grid.cap : (first + count) * grid.cap]
 
 
-def _launch(op: str, grid: nb.BinnedGrid, pos, mass, prm, widths, home, a=None, b=None,
-            n_pow: int = 0) -> list[torch.Tensor]:
-    """Launch op ``op`` of ``csrc/pbf.cu``; returns its outputs, one per
-    entry of ``widths`` (trailing shape of a home row)."""
+def words_per_slot(dim: int, cap: int) -> int:
+    """M, the hit words of one home slot: ceil(3 cap / 32) for each of the
+    3^(dim-1) slabs (a slab's candidates lie in three cells)."""
+    return 3 ** (dim - 1) * -(-3 * cap // 32)
+
+
+def _checked(op: str, grid: nb.BinnedGrid, pos, mass, prm, home, a=None, b=None,
+             words=None) -> tuple[int, int, int]:
+    """(S, first, count) of a launch of op ``op`` after checking its inputs
+    (``a`` per-slot rows, ``b`` [S], ``words`` [S, M] int32)."""
     dt, dev, dim, cap = pos.dtype, pos.device, grid.dim, grid.cap
     S = pos.shape[0]
     first, count = nb.home_range(grid, S, home)
@@ -105,9 +122,23 @@ def _launch(op: str, grid: nb.BinnedGrid, pos, mass, prm, widths, home, a=None, 
         if b.shape != (S,):
             raise ValueError(f"pbf {op}: per-slot input must be [{S}], got {tuple(b.shape)}")
         extra["b"] = (b, None)
+    if words is not None:
+        m = words_per_slot(dim, cap)
+        if words.shape != (S, m):
+            raise ValueError(f"pbf {op}: words must be [{S}, {m}], got {tuple(words.shape)}")
+        extra["words"] = (words, torch.int32)
     _native.check_cuda(f"pbf {op}", dt, dev, pos=(pos, None), mass=(mass, None),
                        prm=(prm, None), **extra)
     runs.check_staging(f"pbf {op}", cap, pos=pos, mass=mass)
+    return S, first, count
+
+
+def _launch(op: str, grid: nb.BinnedGrid, pos, mass, prm, widths, home, a=None, b=None,
+            n_pow: int = 0) -> list[torch.Tensor]:
+    """Launch op ``op`` of ``csrc/pbf.cu``'s ``pbf_runs``; returns its
+    outputs, one per entry of ``widths`` (trailing shape of a home row)."""
+    dt, dev, dim, cap = pos.dtype, pos.device, grid.dim, grid.cap
+    S, first, count = _checked(op, grid, pos, mass, prm, home, a=a, b=b)
     outs = [torch.empty((count * cap,) + w, dtype=dt, device=dev) for w in widths]
     s0, s1 = (grid.strides + (0,))[:2]
     _native.launch(
@@ -115,6 +146,28 @@ def _launch(op: str, grid: nb.BinnedGrid, pos, mass, prm, widths, home, a=None, 
         S, cap, dim, s0, s1, first, count, n_pow,
     )
     return outs
+
+
+def _walk(op: str, grid: nb.BinnedGrid, pos, mass, prm, widths, home, lam=None, words=None,
+          n_pow: int = 0) -> list[torch.Tensor]:
+    """Launch op ``op`` of ``csrc/pbf.cu``'s ``pbf_walk``: lambda returns
+    its outputs (``widths`` as ``_launch``) and its hit words; dx walks
+    ``words`` with ``lam``."""
+    dt, dev, dim, cap = pos.dtype, pos.device, grid.dim, grid.cap
+    S, first, count = _checked(op, grid, pos, mass, prm, home, a=lam, words=words)
+    if words is not None:  # lam is staged with the window, words read 16 bytes at a time
+        runs.check_staging(f"pbf {op}", cap, lam=lam, words=words)
+    m = words_per_slot(dim, cap)
+    outs = [torch.empty((count * cap,) + w, dtype=dt, device=dev) for w in widths]
+    made = None if words is not None else torch.empty((count * cap, m), dtype=torch.int32,
+                                                      device=dev)
+    s0, s1 = (grid.strides + (0,))[:2]
+    _native.launch(
+        "pbf_walk", dt, _OPS[op], pos, mass, lam, prm, outs[0],
+        outs[1] if len(outs) > 1 else None, words, made, S, cap, dim, s0, s1, first, count, m,
+        n_pow,
+    )
+    return outs if made is None else outs + [made]
 
 
 def _prm(dtype: torch.dtype, *values) -> torch.Tensor:
@@ -174,17 +227,19 @@ def lambda_fold_plain(params: FluidParams, pbf, grid, pos, mass, home=None):
 
 
 def lambda_fold(params: FluidParams, pbf, grid, pos, mass, home=None):
-    """(lambda, rho) [n] of the n home slots: ``lambda_fold_plain`` on the
-    CPU, op ``lambda`` of ``csrc/pbf.cu`` on the card."""
+    """(lambda, rho [n], words) of the n home slots: ``lambda_fold_plain``
+    on the CPU (words [n, 0]), op ``lambda`` of ``csrc/pbf.cu``'s walk on
+    the card (words [n, ``words_per_slot``], for ``dx_fold``)."""
     if _device("lambda_fold", pos):
-        return lambda_fold_plain(params, pbf, grid, pos, mass, home)
+        lam, rho = lambda_fold_plain(params, pbf, grid, pos, mass, home)
+        return lam, rho, torch.zeros((lam.shape[0], 0), dtype=torch.int32)
     h = params.h
     prm = _prm(pos.dtype, h, smoothing.poly6_coeff(params.dim, h),
                smoothing.spiky_grad_coeff(params.dim, h), 1.0 / params.rest_density,
                pbf.relax_eps)
-    lam, rho = _launch("lambda", grid, pos, mass, prm, ((), ()), home)
+    lam, rho, words = _walk("lambda", grid, pos, mass, prm, ((), ()), home)
     lambda_fold.launches += 1
-    return lam, rho
+    return lam, rho, words
 
 
 # ---------------------------------------------------------------- dx
@@ -197,9 +252,10 @@ def _dx_constants(params: FluidParams, pbf):
     return 1.0 / w_dq, -(pbf.s_corr_k * h * h)
 
 
-def dx_fold_plain(params: FluidParams, pbf, grid, pos, mass, lam, home=None):
+def dx_fold_plain(params: FluidParams, pbf, grid, pos, mass, lam, words=None, home=None):
     """[n, dim] position corrections of the home slots from the lambdas,
-    with the artificial pressure -k h^2 (W / W(dq h))^n."""
+    with the artificial pressure -k h^2 (W / W(dq h))^n; ``words`` (the
+    kernel's hit words) is ignored."""
     dim, h = params.dim, params.h
     rho0 = params.rest_density
     inv_wdq, neg_k_h2 = _dx_constants(params, pbf)
@@ -221,18 +277,26 @@ def dx_fold_plain(params: FluidParams, pbf, grid, pos, mass, lam, home=None):
     return torch.stack(dxs, dim=-1) * (1.0 / rho0)
 
 
-def dx_fold(params: FluidParams, pbf, grid, pos, mass, lam, home=None):
+def dx_fold(params: FluidParams, pbf, grid, pos, mass, lam, words=None, home=None):
     """[n, dim] corrections of the n home slots: ``dx_fold_plain`` on the
-    CPU, op ``dx`` of ``csrc/pbf.cu`` on the card."""
+    CPU (``words`` ignored), op ``dx`` of ``csrc/pbf.cu`` on the card: its
+    walk over ``words``, the words ``lambda_fold`` returned on this pos,
+    mass and home range, rows of the buffer; its own distance tests when
+    ``words`` is None."""
     if _device("dx_fold", pos):
-        return dx_fold_plain(params, pbf, grid, pos, mass, lam, home)
+        return dx_fold_plain(params, pbf, grid, pos, mass, lam, home=home)
     h = params.h
     inv_wdq, neg_k_h2 = _dx_constants(params, pbf)
     prm = _prm(pos.dtype, h, smoothing.poly6_coeff(params.dim, h),
                smoothing.spiky_grad_coeff(params.dim, h), 1.0 / params.rest_density, inv_wdq,
                neg_k_h2)
-    (dx,) = _launch("dx", grid, pos, mass, prm, ((grid.dim,),), home, a=lam,
-                    n_pow=pbf.s_corr_n)
+    if words is None:
+        (dx,) = _launch("dx", grid, pos, mass, prm, ((grid.dim,),), home, a=lam,
+                        n_pow=pbf.s_corr_n)
+    else:
+        (dx,) = _walk("dx", grid, pos, mass, prm, ((grid.dim,),), home, lam=lam, words=words,
+                      n_pow=pbf.s_corr_n)
+        dx_fold.word_launches += 1
     dx_fold.launches += 1
     return dx
 
@@ -352,3 +416,4 @@ def vorticity_eta_fold(params: FluidParams, grid, pos, mass, m_rho_w, home=None)
 FOLDS = (lambda_fold, dx_fold, density_xsph_fold, vorticity_fold, vorticity_eta_fold)
 for _f in FOLDS:
     _f.launches = 0
+dx_fold.word_launches = 0  # the dx launches that walked lambda's words

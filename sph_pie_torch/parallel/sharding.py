@@ -276,7 +276,8 @@ def mesh_fold(mesh: comm.Mesh, grid: nb.BinnedGrid):
     exchanges their margins, calls the ``neighbors.pbf_folds`` function
     ``fn(*args, **buffers, home=s.home)`` on each shard (its kernel on the
     card, on the shard's home range) and gathers each output (whole, on
-    every rank)."""
+    every rank). Integer fields (lambda's hit words) travel as the float
+    ones do."""
     layout = comm.make_layout(
         equal_splits(grid.num_cells, mesh.n), grid.cap, nb.halo_cells(grid)
     )
@@ -287,7 +288,10 @@ def mesh_fold(mesh: comm.Mesh, grid: nb.BinnedGrid):
         for k, x in fields.items():
             for s, part in zip(shards, comm.split(mesh, layout, x)):
                 s.field(k).copy_(part)
-        comm.exchange(mesh, shards, tuple(fields))
+        # one exchange per dtype: a process group packs each message by
+        # concatenation, which would cast lambda's int32 hit words
+        for dt in dict.fromkeys(x.dtype for x in fields.values()):
+            comm.exchange(mesh, shards, tuple(k for k, x in fields.items() if x.dtype == dt))
         parts = []
         for s in shards:
             out = fn(*args, **s.buf, home=s.home)

@@ -133,9 +133,10 @@ def _pos(fields: dict, dim: int) -> torch.Tensor:
 
 def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=pf.whole_grid):
     """(lambda, rho) per slot from one fold over the predicted positions
-    (``fields``: pos and mass)."""
+    (``fields``: pos and mass). ``step`` calls the fold itself, for the hit
+    words it returns beside them."""
     return fold(pf.lambda_fold, params, pbf, grid, pos=_pos(fields, params.dim),
-                mass=fields["mass"])
+                mass=fields["mass"])[:2]
 
 
 def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=pf.whole_grid):
@@ -191,7 +192,8 @@ def step(
     is a call ``fold(fn, *args, **fields)`` of a ``neighbors.pbf_folds``
     function on whole-grid per-slot fields: ``pbf_folds.whole_grid`` runs
     it on the whole grid, ``parallel.sharding.mesh_fold`` on each shard of
-    a mesh.
+    a mesh. Each projection's dx call takes the hit words its lambda call
+    returned, as one more per-slot field.
 
     On a periodic grid every rebin check is followed by ``wrap_ghosts``,
     walls and the box projection act on the wall axes only, and the final
@@ -252,8 +254,9 @@ def step(
         b = rebin_check(b, light=not ride, carry_density=ride)
         v = fmask(b)
         fields = {"pos": b.pos, "mass": b.mass}
-        lam, _ = _lambda_fold(params, pbf, grid, fields, fold)
-        dx = pbf.sor * _dx_fold(params, pbf, grid, {**fields, "lam": lam}, fold)
+        lam, _, words = fold(pf.lambda_fold, params, pbf, grid, **fields)
+        dx = pbf.sor * fold(pf.dx_fold, params, pbf, grid, **fields, lam=lam, words=words)
+        del words  # [S, M] int32 on the card: gone before the next lambda makes its own
         n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
         dx = torch.where(v, dx * torch.clamp(proj_cap / n, max=1.0), 0.0)
         x = clip_box(b.pos + dx)

@@ -3,7 +3,8 @@ CPU, spawned by ``torch.multiprocessing`` (importable without JAX).
 
 Each rank builds the same scene from its builder, places it on a mesh of
 one shard per rank, runs ``steps`` steps of the halo or the balanced step
-and saves its shard's home fields to ``<out>/rank<r>.pt``."""
+and saves its shard's home fields to ``<out>/rank<r>.pt`` (or, for kind
+"bits", the int32 field ``fold_bits`` gathers through ``mesh_fold``)."""
 
 from __future__ import annotations
 
@@ -32,9 +33,26 @@ def shard_fields(st) -> dict:
     return {f"{s.index}/{k}": s.field(k).clone() for s in st.shards for k in sharding.SLOT_FIELDS}
 
 
+def fold_bits(mesh, scene):
+    """The position bits of every slot, as an int32 per-slot field carried
+    through ``mesh_fold``'s split, exchange and gather."""
+    g, b = scene.bgrid, scene.binned_state()
+    fold = sharding.mesh_fold(mesh, g)
+
+    def home_bits(pos, mass, bits, home):
+        assert bits.dtype == torch.int32 and torch.equal(bits, pos.view(torch.int32))
+        first, count = home
+        return bits[first * g.cap:(first + count) * g.cap]
+
+    return fold(home_bits, pos=b.pos, mass=b.mass, bits=b.pos.view(torch.int32))
+
+
 def run(kind: str, mesh, scene, steps: int):
     """The final home fields of ``steps`` steps of ``kind`` ("halo" or
-    "balanced") on ``mesh``, with travel and sim_time."""
+    "balanced") on ``mesh``, with travel and sim_time; for "bits", the whole
+    int32 field ``fold_bits`` gathers."""
+    if kind == "bits":
+        return {"bits": fold_bits(mesh, scene)}
     g, b = scene.bgrid, scene.binned_state()
     torch.set_num_threads(1)
     if kind == "halo":

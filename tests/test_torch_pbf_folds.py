@@ -235,7 +235,8 @@ def test_launchers_read_nothing_back():
     ``.cpu()`` or ``.numpy()``, and no ``bool`` / ``int`` / ``float``."""
     banned_attrs = {"item", "tolist", "nonzero", "cpu", "numpy"}
     banned_names = {"bool", "int", "float"}
-    for fn in (*pf.FOLDS, pf._launch, pf._prm, pf._device, pf._dx_constants):
+    for fn in (*pf.FOLDS, pf._launch, pf._walk, pf._checked, pf.words_per_slot, pf._prm,
+               pf._device, pf._dx_constants):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         for node in ast.walk(tree):
             if not isinstance(node, ast.Call):
