@@ -118,8 +118,8 @@ PBF steps under each epilogue, ride against gather) and the fully periodic
 particles cross a seam. F3 runs the gather engine (``solvers/wcsph.simulate``) on
 ``dam_break_2d(4096)`` for 200 steps on both devices in float64 and
 float32. F4 checkpoints F1's state, resumes 10 steps from the file and from
-memory (bit for bit), rotates a ``CheckpointManager``, times F1's step
-with ``profiling.StepTimer`` and traces one with ``device_trace``.
+memory (bit for bit), rotates a ``CheckpointManager`` and traces one of
+F1's steps with ``device_trace``, which records the step's ``sph.*`` spans.
 
 Phase G drives ``parallel/``: spatial shards of the cells on a mesh inside
 this process (one card holds them all). G1 runs Phase B's scene on 4
@@ -2206,7 +2206,7 @@ def phase_f4(f1) -> None:
 
     s, b = f1
     g, p = s.bgrid, s.params
-    print("== Phase F4: checkpoint, resume, rotation, StepTimer and device_trace on F1's state")
+    print("== Phase F4: checkpoint, resume, rotation and device_trace on F1's state")
     st = nb.unbin(g, b, s.state.capacity)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
                                      prefix=".chip_smoke_") as d:
@@ -2236,14 +2236,6 @@ def phase_f4(f1) -> None:
         print(f"  CheckpointManager(keep=2) after steps 10, 20, 30: {kept}, restores step {latest}")
         check(kept == ["ckpt_20.npz", "ckpt_30.npz"] and latest == 30, "F4: rotation")
 
-    timer = profiling.StepTimer()
-    for _ in range(10):
-        with timer.time("F1 step", device="cuda") as out:
-            b = wcsph_binned.step(p, g, b)
-            out["result"] = b.pos
-    stt = timer.stats()["F1 step"]
-    print(f"  StepTimer (CUDA events), 10 F1 steps: p50 {stt['p50_ms']:.3f} ms, mean "
-          f"{stt['mean_ms']:.3f}, max {stt['max_ms']:.3f}")
     with profiling.device_trace() as prof:
         with profiling.annotate("F1 step"):
             b = wcsph_binned.step(p, g, b)
@@ -2253,10 +2245,13 @@ def phase_f4(f1) -> None:
     evs = prof.events()
     dev = [e for e in evs if e.device_type == DeviceType.CUDA]
     spans = [e for e in evs if e.name == "F1 step"]
+    phases = [e.name for e in evs if e.name.startswith("sph.") and e.device_type != DeviceType.CUDA]
     print(f"  device_trace of one F1 step: {len(dev)} device kernels and copies, "
           f"{sum(e.time_range.elapsed_us() for e in dev) / 1e3:.3f} device ms, span 'F1 step' "
-          f"recorded {len(spans)} time(s)")
+          f"recorded {len(spans)} time(s), the step's spans {phases}")
     check(len(spans) >= 1, "F4: the annotate span is missing from the trace")
+    check({"sph.rebin_check", "sph.density", "sph.forces", "sph.integrate"} <= set(phases),
+          "F4: a phase span of the step is missing from the trace")
 
 
 @functools.cache

@@ -1,0 +1,16 @@
+"""Device time of the work enqueued inside the program's ``sph.density``
+spans (``solvers/wcsph_binned.step``: the density fold and the Tait EOS)
+in the profiled slice, ms a step (``spans.device_us``: the device
+operations paired with the host's enqueues in order)."""
+
+from h100bench import spans
+
+UNIT = "ms/step"
+LAYER = "WCSPH pair kernels (neighbors/density, neighbors/forces, csrc/density.cu, csrc/forces.cu)"
+MOVES = "particle_steps_per_s"
+SPAN = "sph.density"
+
+
+def read(r):
+    got = spans.device_us(r.slice, SPAN) if r.slice is not None else None
+    return got[0] / 1e3 / r.slice.steps if got else None

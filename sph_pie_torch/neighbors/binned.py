@@ -27,6 +27,7 @@ import torch
 
 from sph_pie_torch.core.state import ParticleState, allocate
 from sph_pie_torch.neighbors.expand import expand
+from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
 
 PairFn = Callable[
@@ -502,13 +503,15 @@ def rebin(
     constraint iterations read only pos and mass. ``carry_density=True``
     places the density column too, where it is zero otherwise: PBF's "ride"
     epilogue keeps the previous step's density there. WCSPH takes neither
-    (it recomputes density next)."""
-    pos, vel, mass, alive, dens = _compact(grid, b, light, carry_density)
-    owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
-    return _bin_rows(
-        grid, pos, vel, mass, owner, alive, b.n_rebins + 1, b.sim_time,
-        density=dens,
-    )
+    (it recomputes density next). The whole rebin is the span ``sph.rebin``
+    of the profile while one records."""
+    with annotate("sph.rebin"):
+        pos, vel, mass, alive, dens = _compact(grid, b, light, carry_density)
+        owner = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+        return _bin_rows(
+            grid, pos, vel, mass, owner, alive, b.n_rebins + 1, b.sim_time,
+            density=dens,
+        )
 
 
 def unbin(grid: BinnedGrid, b: BinnedState, capacity: int) -> ParticleState:

@@ -19,6 +19,13 @@ read nothing back to the host, and their plain versions over
 without the fused fold goes through ``neighbors.density.density`` (the
 ``density`` CUDA kernel on the card).
 
+Each phase is a span of the profile while one records
+(``utils.profiling.annotate``): ``sph.rebin_check`` around each of the
+``iters + 2`` checks, ``sph.predict`` (the "gather" stashes, taken before
+the entry check, are a second one), ``sph.project`` around each
+projection after its check, ``sph.epilogue`` from the last check to the
+returned state.
+
 Empty slots: the folds give the slots of empty cells 0 where the reference
 computes a sum from position 0. Their values reach nothing: every window
 term carries ``m_j = 0`` and every update is masked by the slots that move.
@@ -39,6 +46,7 @@ from sph_pie_torch.neighbors.pbf_folds import inv_r_of as _inv_r
 from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
 from sph_pie_torch.solvers.wcsph_binned import maybe_rebin, wall_axes
+from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
 
 # The tensor fields of PbfParams, in declaration order (convert.py walks them).
@@ -202,22 +210,20 @@ def step(
     (stash or ride payload, unoffset in the ghosts) stays continuous."""
     ride = pbf.epilogue == "ride"
     if not ride:
-        # Owner-indexed stashes, taken before the entry rebin: a fired
-        # rebin permutes slots (owners stay) and zeroes the density.
-        safe = torch.clamp(b.slot_of, 0, grid.num_slots - 1).to(torch.int64)
-        pos0c = b.pos[safe]       # [K, dim] step-start positions
-        rho_prev_c = b.density[safe]  # previous step's final density
+        with annotate("sph.predict"):
+            # Owner-indexed stashes, taken before the entry rebin: a fired
+            # rebin permutes slots (owners stay) and zeroes the density.
+            safe = torch.clamp(b.slot_of, 0, grid.num_slots - 1).to(torch.int64)
+            pos0c = b.pos[safe]       # [K, dim] step-start positions
+            rho_prev_c = b.density[safe]  # previous step's final density
 
     periodic = any(grid.periodic)
     walls = wall_axes(grid)
 
     def rebin_check(bb, **kw):
-        bb = maybe_rebin(grid, bb, **kw)
-        return nb.wrap_ghosts(grid, bb) if periodic else bb
-
-    b = rebin_check(b, carry_density=ride)
-    if periodic:
-        wall_mask = nb.axis_vector(walls, torch.bool, b.pos.device)[None, :]
+        with annotate("sph.rebin_check"):
+            bb = maybe_rebin(grid, bb, **kw)
+            return nb.wrap_ghosts(grid, bb) if periodic else bb
 
     def clip_box(x):
         """Project into the AABB on wall axes only (periodic axes drift
@@ -228,89 +234,94 @@ def step(
     def fmask(bb):
         return (bb.valid & ~nb.frozen_mask(grid, bb))[:, None]
 
-    valid = fmask(b)
+    b = rebin_check(b, carry_density=ride)
 
-    # Predict
-    acc = torch.zeros_like(b.pos) + params.gravity
-    acc = acc + boundary_accel(params, b.pos, b.vel, walls)
-    if obstacles is not None:
-        acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
-    vel = torch.where(valid, b.vel + params.dt * acc, 0.0)
-    vel = clamp_speed(params, vel)
-    x_star = torch.where(valid, b.pos + params.dt * vel, b.pos)
+    with annotate("sph.predict"):
+        if periodic:
+            wall_mask = nb.axis_vector(walls, torch.bool, b.pos.device)[None, :]
+        valid = fmask(b)
+        acc = torch.zeros_like(b.pos) + params.gravity
+        acc = acc + boundary_accel(params, b.pos, b.vel, walls)
+        if obstacles is not None:
+            acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
+        vel = torch.where(valid, b.vel + params.dt * acc, 0.0)
+        vel = clamp_speed(params, vel)
+        x_star = torch.where(valid, b.pos + params.dt * vel, b.pos)
 
-    # "gather": vel is left as it is (light mid-step rebins drop it);
-    # "ride": the vel slots carry the step-start positions through full,
-    # density-carrying rebins.
-    b = replace(
-        b,
-        pos=x_star,
-        vel=b.pos if ride else b.vel,
-        travel=b.travel + _max_norm(x_star - b.pos),
-    )
+        # "gather": vel is left as it is (light mid-step rebins drop it);
+        # "ride": the vel slots carry the step-start positions through full,
+        # density-carrying rebins.
+        b = replace(
+            b,
+            pos=x_star,
+            vel=b.pos if ride else b.vel,
+            travel=b.travel + _max_norm(x_star - b.pos),
+        )
+        proj_cap = torch.clamp(pbf.proj_cap_h * params.h, max=0.5 * grid.skin)
 
-    proj_cap = torch.clamp(pbf.proj_cap_h * params.h, max=0.5 * grid.skin)
     for _ in range(pbf.iters):
         b = rebin_check(b, light=not ride, carry_density=ride)
-        v = fmask(b)
-        fields = {"pos": b.pos, "mass": b.mass}
-        lam, _, words = fold(pf.lambda_fold, params, pbf, grid, **fields)
-        dx = pbf.sor * fold(pf.dx_fold, params, pbf, grid, **fields, lam=lam, words=words)
-        del words  # [S, M] int32 on the card: gone before the next lambda makes its own
-        n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
-        dx = torch.where(v, dx * torch.clamp(proj_cap / n, max=1.0), 0.0)
-        x = clip_box(b.pos + dx)
-        b = replace(b, pos=torch.where(v, x, b.pos), travel=b.travel + _max_norm(dx))
+        with annotate("sph.project"):
+            v = fmask(b)
+            fields = {"pos": b.pos, "mass": b.mass}
+            lam, _, words = fold(pf.lambda_fold, params, pbf, grid, **fields)
+            dx = pbf.sor * fold(pf.dx_fold, params, pbf, grid, **fields, lam=lam, words=words)
+            del words  # [S, M] int32 on the card: gone before the next lambda makes its own
+            n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
+            dx = torch.where(v, dx * torch.clamp(proj_cap / n, max=1.0), 0.0)
+            x = clip_box(b.pos + dx)
+            b = replace(b, pos=torch.where(v, x, b.pos), travel=b.travel + _max_norm(dx))
 
     b = rebin_check(b, light=not ride, carry_density=ride)
-    valid = fmask(b)
-    x_star = b.pos
-    if ride:
-        pos0, rho_prev = b.vel, b.density
-    else:
-        own = torch.clamp(b.owner, 0, pos0c.shape[0] - 1).to(torch.int64)
-        pos0, rho_prev = pos0c[own], rho_prev_c[own]
+    with annotate("sph.epilogue"):
+        valid = fmask(b)
+        x_star = b.pos
+        if ride:
+            pos0, rho_prev = b.vel, b.density
+        else:
+            own = torch.clamp(b.owner, 0, pos0c.shape[0] - 1).to(torch.int64)
+            pos0, rho_prev = pos0c[own], rho_prev_c[own]
 
-    # Monaghan XSPH weight from the previous step's density (rest density
-    # for rows that have none yet).
-    m_rho = b.mass / torch.where(rho_prev > 0, rho_prev, params.rest_density)
+        # Monaghan XSPH weight from the previous step's density (rest density
+        # for rows that have none yet).
+        m_rho = b.mass / torch.where(rho_prev > 0, rho_prev, params.rest_density)
 
-    disp = x_star - pos0
-    if periodic:
-        # Minimum image on periodic axes (period dims * cell_size).
-        order = grid.axis_order or tuple(range(grid.dim))
-        lengths = [
-            grid.dims[order.index(sa)] * grid.cell_size
-            if grid.periodic[order.index(sa)]
-            else 0.0
-            for sa in range(grid.dim)
-        ]
-        L = nb.axis_vector(lengths, disp.dtype, disp.device)[None, :]
-        safe_L = torch.where(L > 0, L, 1.0)
-        disp = torch.where(L > 0, disp - L * torch.round(disp / safe_L), disp)
-    new_vel = torch.where(valid, disp / params.dt, 0.0)
-    new_vel = clamp_speed(params, new_vel)
+        disp = x_star - pos0
+        if periodic:
+            # Minimum image on periodic axes (period dims * cell_size).
+            order = grid.axis_order or tuple(range(grid.dim))
+            lengths = [
+                grid.dims[order.index(sa)] * grid.cell_size
+                if grid.periodic[order.index(sa)]
+                else 0.0
+                for sa in range(grid.dim)
+            ]
+            L = nb.axis_vector(lengths, disp.dtype, disp.device)[None, :]
+            safe_L = torch.where(L > 0, L, 1.0)
+            disp = torch.where(L > 0, disp - L * torch.round(disp / safe_L), disp)
+        new_vel = torch.where(valid, disp / params.dt, 0.0)
+        new_vel = clamp_speed(params, new_vel)
 
-    floor = 1e-6 * params.rest_density
-    if params.use_xsph and not pbf.use_vorticity:
-        rho, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
-        rho = torch.maximum(torch.where(b.valid, rho, 0.0), floor)
-        new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
-        new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
-    else:
-        rho = density(params, grid, b)  # b.pos is x_star
-        rho = torch.maximum(rho, floor)
-        if pbf.use_vorticity:
-            omega = _vorticity_fold(params, grid, x_star, new_vel, b.mass, rho, fold)
-            f_vort = _vorticity_force(params, grid, x_star, b.mass, rho, omega, fold)
-            new_vel = new_vel + (pbf.vort_eps * params.dt) * torch.where(valid, f_vort, 0.0)
-            new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
-        if params.use_xsph:
-            _, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
+        floor = 1e-6 * params.rest_density
+        if params.use_xsph and not pbf.use_vorticity:
+            rho, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
+            rho = torch.maximum(torch.where(b.valid, rho, 0.0), floor)
             new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
             new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
+        else:
+            rho = density(params, grid, b)  # b.pos is x_star
+            rho = torch.maximum(rho, floor)
+            if pbf.use_vorticity:
+                omega = _vorticity_fold(params, grid, x_star, new_vel, b.mass, rho, fold)
+                f_vort = _vorticity_force(params, grid, x_star, b.mass, rho, omega, fold)
+                new_vel = new_vel + (pbf.vort_eps * params.dt) * torch.where(valid, f_vort, 0.0)
+                new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
+            if params.use_xsph:
+                _, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
+                new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
+                new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
 
-    return replace(b, vel=new_vel, density=rho, sim_time=b.sim_time + params.dt)
+        return replace(b, vel=new_vel, density=rho, sim_time=b.sim_time + params.dt)
 
 
 def simulate(

@@ -11,6 +11,10 @@ Same physics, constants and update order as the reference's
   4. symplectic Euler on the slots that move, the CFL clamp, XSPH;
   5. the per-step displacement bound ``travel`` and the clock.
 
+Each phase is a span of the profile while one records
+(``utils.profiling.annotate``): ``sph.rebin_check`` (1), ``sph.density``
+(2), ``sph.forces`` (3), ``sph.integrate`` (4 and 5).
+
 On CUDA tensors the pair sums and the rebin placement run the hand-written
 kernels; on CPU tensors their plain PyTorch versions.
 """
@@ -26,6 +30,7 @@ from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.forces import forces
 from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
+from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
 
 
@@ -48,15 +53,23 @@ def maybe_rebin(
 
     Each branch is a decision on the host, so it reads one device scalar:
     one device-to-host sync per step, two on a step where ``travel`` has
-    passed the threshold.
+    passed the threshold. ``maybe_rebin.checks`` counts the first reads,
+    ``maybe_rebin.drift_reads`` the second; the rebins fired are counted
+    by the state's ``n_rebins``.
     """
     thr = 0.5 * grid.skin
+    maybe_rebin.checks += 1
     if not bool(b.travel > thr):
         return b
     d = torch.sqrt(((b.pos - b.bin_pos) ** 2).sum(dim=-1).amax())
+    maybe_rebin.drift_reads += 1
     if bool(d > thr):
         return nb.rebin(grid, b, light=light, carry_density=carry_density)
     return replace(b, travel=d)
+
+
+maybe_rebin.checks = 0
+maybe_rebin.drift_reads = 0
 
 
 def wall_axes(grid: nb.BinnedGrid) -> tuple[bool, ...] | None:
@@ -81,36 +94,40 @@ def step(
     clock before it advances, over every slot; the move mask drops empty
     slots. Periodic axes have no wall: their ghost planes are refreshed
     after the rebin check, and the ghost slots move with the rest."""
-    b = maybe_rebin(grid, b)
-    if any(grid.periodic):
-        b = nb.wrap_ghosts(grid, b)
+    with annotate("sph.rebin_check"):
+        b = maybe_rebin(grid, b)
+        if any(grid.periodic):
+            b = nb.wrap_ghosts(grid, b)
 
-    rho = density(params, grid, b)
-    b = replace(b, density=rho, pressure=eos.tait_pressure(params, rho))
+    with annotate("sph.density"):
+        rho = density(params, grid, b)
+        b = replace(b, density=rho, pressure=eos.tait_pressure(params, rho))
 
-    acc, xsph = forces(params, grid, b)
-    acc = acc + params.gravity
-    acc = acc + boundary_accel(params, b.pos, b.vel, wall_axes(grid))
-    if obstacles is not None:
-        acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
+    with annotate("sph.forces"):
+        acc, xsph = forces(params, grid, b)
+        acc = acc + params.gravity
+        acc = acc + boundary_accel(params, b.pos, b.vel, wall_axes(grid))
+        if obstacles is not None:
+            acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
 
-    move = (b.valid & ~nb.frozen_mask(grid, b))[:, None]
-    vel = torch.where(move, b.vel + params.dt * acc, 0.0)
-    vel = clamp_speed(params, vel)
-    vel_adv = torch.where(move, vel + params.xsph_eps * xsph, 0.0)
-    pos = torch.where(move, b.pos + params.dt * vel_adv, b.pos)
+    with annotate("sph.integrate"):
+        move = (b.valid & ~nb.frozen_mask(grid, b))[:, None]
+        vel = torch.where(move, b.vel + params.dt * acc, 0.0)
+        vel = clamp_speed(params, vel)
+        vel_adv = torch.where(move, vel + params.xsph_eps * xsph, 0.0)
+        pos = torch.where(move, b.pos + params.dt * vel_adv, b.pos)
 
-    # Hard per-step displacement bound for the Verlet-skin guarantee.
-    step_disp = params.dt * torch.sqrt(
-        torch.clamp((vel_adv * vel_adv).sum(dim=-1).amax(), min=0.0)
-    )
-    return replace(
-        b,
-        pos=pos,
-        vel=vel,
-        travel=b.travel + step_disp,
-        sim_time=b.sim_time + params.dt,
-    )
+        # Hard per-step displacement bound for the Verlet-skin guarantee.
+        step_disp = params.dt * torch.sqrt(
+            torch.clamp((vel_adv * vel_adv).sum(dim=-1).amax(), min=0.0)
+        )
+        return replace(
+            b,
+            pos=pos,
+            vel=vel,
+            travel=b.travel + step_disp,
+            sim_time=b.sim_time + params.dt,
+        )
 
 
 def simulate(

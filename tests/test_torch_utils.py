@@ -3,8 +3,8 @@
 Checkpoints cross-load with the reference's ``sph_pie_tpu.utils.checkpoint``
 in both directions, bit for bit (the same ``.npz`` keys); rotation and the
 version guard as ``tests/test_checkpoint_config.py``; the budget against
-the shape math of the grid it reckons; ``StepTimer`` and ``device_trace``
-on the CPU.
+the shape math of the grid it reckons; ``device_trace`` and ``annotate``
+on the CPU (the step's spans: ``test_torch_spans.py``).
 """
 
 import dataclasses
@@ -151,19 +151,6 @@ def test_dam_break_budget_is_the_built_grid():
     big = membudget.dam_break_budget(16_000_000)
     assert big.fits  # 16M on one 80 GiB card, reckoned
     assert big.dense_state_bytes > big.compact_bytes
-
-
-def test_step_timer_on_the_cpu():
-    t = profiling.StepTimer(window=3)
-    for _ in range(5):
-        with t.time("phase") as out:
-            out["result"] = torch.ones(1000).cumsum(0)
-    with t.time("other", device="cpu"):
-        pass
-    s = t.stats()
-    assert s["phase"]["count"] == 3 and s["other"]["count"] == 1
-    assert set(s["phase"]) == {"count", "mean_ms", "p50_ms", "max_ms"}
-    assert 0 <= s["phase"]["p50_ms"] <= s["phase"]["max_ms"]
 
 
 def test_device_trace_and_annotate_on_the_cpu(tmp_path):
