@@ -48,10 +48,18 @@ words against dx's own distance tests bit for bit, and with ``home=`` a
 proper sub-range of a buffer cut from the grid against the same rows of
 the whole grid, bit for bit (dx walking the whole grid's words, cut).
 
+Phase A then holds the step loop's update kernel (``csrc/integrate.cu``:
+WCSPH's ``update`` and PBF's ``predict``) against its plain version, the
+torch composition, bit for bit on the 1M dam break after 5 WCSPH steps and
+again with seeded N(0, 30) m/s velocities: the fields that differ (none)
+and the largest gap in units in the last place (0), each timed beside its
+plain version and its least time.
+
 Phase B drives the main path at the flagship size — ``dam_break_3d(1M)``,
 ``bin_state``, 5 warm steps, 3 timed reps of 20 steps — with every launch
-counter reset just before and read just after, then times each kernel
-against its plain version on the final state and checks them again there.
+counter reset just before and read just after (``update`` once a step),
+then times each kernel against its plain version on the final state and
+checks them again there.
 
 Phase C drives the path of those four kernels at 1M, with their launch
 counters reset just before and read just after: C1 is the scene of
@@ -69,9 +77,9 @@ config #4 as ``bench.py``'s ``pbf_3d_1m_render`` row runs it:
 ``dam_break_3d(1M)`` under ``flagship_params()`` (the "ride" epilogue), a
 ``render_binned_u8`` frame after every step whose sum is consumed on the
 device, 5 warm steps and 3 timed reps of 20 (Phase B's), with the launch
-counters of ``expand``, ``density`` and the five PBF kernels
-(``csrc/pbf.cu``) reset just before and read just after; it prints
-ms/step, particle-steps/s, rebins and checks, host syncs, peak memory and
+counters of ``expand``, ``density``, ``predict`` (once a step) and the
+five PBF kernels (``csrc/pbf.cu``) reset just before and read just after;
+it prints ms/step, particle-steps/s, rebins and checks, host syncs, peak memory and
 a ``torch.profiler`` window of 5 more steps, checks that every dx launch
 walked its lambda's hit words, then checks that the PBF kernels' launchers
 make no host sync, holds each against its plain fold (and dx through the
@@ -615,6 +623,70 @@ def phase_a() -> None:
     check(not diff and int(on_card.overflow) > 0, f"overflowing bin_state differs in {diff}")
     # full cells at the smallest cap: the smallest staged spans
     compare_kernels(s.params, s.bgrid, on_card, with_expand=False)
+
+
+def ulp_gap(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two float
+    tensors of one dtype (on a line where the sign-magnitude bits are
+    monotone)."""
+    it = torch.int32 if got.dtype == torch.float32 else torch.int64
+    lo = torch.iinfo(it).min
+    a, b = (torch.where(t < 0, lo - t, t).to(torch.int64)
+            for t in (got.contiguous().view(it), want.contiguous().view(it)))
+    return int((a - b).abs().max())
+
+
+def phase_a_integrate() -> None:
+    """The step loop's update kernel (``csrc/integrate.cu``: WCSPH's update,
+    PBF's prediction) against its plain version, the torch composition, on
+    the 1M dam break after 5 WCSPH steps (its own forces), then with
+    seeded N(0, 30) m/s velocities on every slot (the speed clamp and the
+    walls' damping at work); bit for bit. Times the kernel against the
+    plain version and its least time (bytes)."""
+    from sph_pie_torch.kernels import eos
+    from sph_pie_torch.neighbors.density import density
+    from sph_pie_torch.neighbors.forces import forces
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.solvers import integrate, wcsph_binned
+    from sph_pie_torch.utils.struct import replace
+
+    print("== Phase A: the step loop's update (csrc/integrate.cu) against its plain version, "
+          "dam_break_3d(1_000_000)")
+    s = dam_break_3d(1_000_000, device="cuda")
+    p, g = s.params, s.bgrid
+    b = wcsph_binned.simulate(p, g, s.binned_state(), 5)
+    rho = density(p, g, b)
+    b = replace(b, density=rho, pressure=eos.tait_pressure(p, rho))
+    acc, xsph = forces(p, g, b)
+    walls = wcsph_binned.wall_axes(g)
+    S, dim, es = g.num_slots, g.dim, b.pos.element_size()
+    moving = int(b.valid.sum())
+    rng = np.random.default_rng(11)
+    fast = torch.as_tensor(rng.normal(0.0, 30.0, tuple(b.pos.shape)), dtype=b.pos.dtype,
+                           device="cuda")
+    least = {  # every slot's valid, pos in and out (and vel out); the moving slots' inputs
+        "update": bound(S * (1 + 3 * dim * es) + moving * 3 * dim * es, 0),
+        "predict": bound(S * (1 + 2 * dim * es) + moving * dim * es, 0),
+    }
+    for label, st in (("after 5 steps", b), ("N(0, 30) velocities", replace(b, vel=fast))):
+        for mode in ("update", "predict"):
+            if mode == "update":
+                fields = ("pos", "vel", "travel")
+                args = (p, g, st, walls, acc, xsph)
+            else:
+                fields = ("x_star", "travel")
+                args = (p, g, st, walls)
+            kernel = getattr(integrate, mode)
+            plain = getattr(integrate, f"{mode}_plain")
+            got, want = kernel(*args), plain(*args)
+            diff = [f for f, a, w in zip(fields, got, want) if not torch.equal(a, w)]
+            gap = max(ulp_gap(a, w) for a, w in zip(got, want))
+            k_ms, p_ms = cuda_ms(lambda: kernel(*args), 20), cuda_ms(lambda: plain(*args), 20)
+            print(f"  {mode:7s} {label}: fields that differ {diff or 'none'} of {list(fields)}, "
+                  f"largest ulp gap {gap}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{least[mode][0]:.4f} ms ({least[mode][1]}, {least[mode][0] / k_ms:.1%})")
+            check(not diff, f"integrate {mode} ({label}) differs from plain in {diff}")
+    print(f"  slots {S}, moving {moving}")
 
 
 def ragged_rows(rng, C: int, cap: int, ncol: int, dtype, cut: str):
@@ -1362,7 +1434,7 @@ def phase_b() -> tuple[list[dict], tuple]:
     from sph_pie_torch.neighbors.expand import expand, expand_plain
     from sph_pie_torch.neighbors.forces import forces
     from sph_pie_torch.scenes import dam_break_3d
-    from sph_pie_torch.solvers import wcsph_binned
+    from sph_pie_torch.solvers import integrate, wcsph_binned
 
     print("== Phase B: main path, dam_break_3d(1_000_000)")
     t0 = time.perf_counter()
@@ -1377,7 +1449,7 @@ def phase_b() -> tuple[list[dict], tuple]:
     torch.cuda.reset_peak_memory_stats()
     warm, steps, reps = 5, 20, 3
     syncs: list[int] = []
-    for k in (density, forces, expand):
+    for k in (density, forces, expand, integrate.update):
         k.launches = 0
     # ---- the main path: counts start at 0 here ----
     b = s.binned_state()
@@ -1392,7 +1464,7 @@ def phase_b() -> tuple[list[dict], tuple]:
             b = wcsph_binned.simulate(s.params, g, b, steps)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
-    launches = {k.__name__: k.launches for k in (density, forces, expand)}
+    launches = {k.__name__: k.launches for k in (density, forces, expand, integrate.update)}
     # ---- counts read here ----
     peak = torch.cuda.max_memory_allocated()
     ms = statistics.median(walls)
@@ -1413,8 +1485,8 @@ def phase_b() -> tuple[list[dict], tuple]:
     check(bool(torch.isfinite(b.pos).all()), "non-finite position")
     check(bool(((pos >= lo) & (pos <= hi)).all()), "position outside the box +- 5h")
     check(int(b.overflow) == 0, "overflow at 1M")
-    check(launches["density"] == run and launches["forces"] == run,
-          f"density/forces launches {launches} != steps run {run}")
+    check(launches["density"] == launches["forces"] == launches["update"] == run,
+          f"density/forces/update launches {launches} != steps run {run}")
     check(launches["expand"] >= 1, "expand never launched")
 
     print(" kernels against their plain versions on the final state:")
@@ -1490,7 +1562,7 @@ def phase_d1() -> dict:
     from sph_pie_torch.neighbors.expand import expand
     from sph_pie_torch.render import splat
     from sph_pie_torch.scenes import dam_break_3d
-    from sph_pie_torch.solvers import pbf
+    from sph_pie_torch.solvers import integrate, pbf
 
     print("== Phase D1: PBF flagship (ride), dam_break_3d(1_000_000), a frame every step")
     t0 = time.perf_counter()
@@ -1507,7 +1579,7 @@ def phase_d1() -> dict:
     torch.cuda.reset_peak_memory_stats()
     syncs: list[int] = []
     walls = []
-    expand.launches = density.launches = 0
+    expand.launches = density.launches = integrate.predict.launches = 0
     reset_pbf()
     # ---- the PBF path: counts start at 0 here ----
     b = s.binned_state()
@@ -1521,7 +1593,8 @@ def phase_d1() -> dict:
             b, checksum = pbf_roll(p, g, pp, b, D_STEPS, checksum)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / D_STEPS)
-    launches = {"expand": expand.launches, "density": density.launches, **read_pbf()}
+    launches = {"expand": expand.launches, "density": density.launches,
+                "predict": integrate.predict.launches, **read_pbf()}
     dx_walks = dx_word_launches()
     # ---- counts read here ----
     peak = torch.cuda.max_memory_allocated()
@@ -1553,6 +1626,7 @@ def phase_d1() -> dict:
     check(int(b.overflow) == 0, "PBF: overflow at 1M")
     check(launches["expand"] == 1 + rebins, f"expand launches {launches} != 1 + rebins {rebins}")
     check(launches["density"] == 0, "the flagship step launches no density kernel")
+    check(launches["predict"] == run, f"predict launches {launches['predict']} != steps {run}")
     check(launches["lambda"] == launches["dx"] == pp.iters * run
           and launches["density_xsph"] == run
           and launches["vorticity"] == launches["vorticity_eta"] == 0,
@@ -2922,7 +2996,8 @@ def main() -> int:
     torch.manual_seed(0)
     seconds = {}
     with torch.no_grad():
-        for name, phase in (("A", phase_a), ("A micro", phase_a_micro), ("A pbf", phase_a_pbf)):
+        for name, phase in (("A", phase_a), ("A integrate", phase_a_integrate),
+                            ("A micro", phase_a_micro), ("A pbf", phase_a_pbf)):
             t0 = time.perf_counter()
             phase()
             seconds[name] = time.perf_counter() - t0

@@ -63,6 +63,13 @@ _SIGNATURES = {
         f"sph_pbf_walk_{t}": [_I] + [_P] * 8 + [_L, _I, _I, _L, _L, _L, _L, _I, _I, _P]
         for t in ("f32", "f64")
     },
+    # integrate: mode, pos, vel, acc, xsph, extra, valid, owner, dt, xsph_eps,
+    # max_speed, h, stiffness, damping, gravity, bmin, bmax, pos out, vel out,
+    # travel, travel out, scratch, S, dim, wall axes, frozen from
+    **{
+        f"sph_integrate_{t}": [_I] + [_P] * 21 + [_L, _I, _I, _L, _P]
+        for t in ("f32", "f64")
+    },
     **{
         f"sph_forces_{t}": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P

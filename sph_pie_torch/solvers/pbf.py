@@ -3,7 +3,8 @@
 The port of the reference's ``solvers/pbf.py``: the same physics,
 constants, arithmetic order and update order. A step:
 
-  predict x* from gravity, the wall and obstacle penalties (speed-clamped)
+  predict x* from gravity, the wall and obstacle penalties (speed-clamped;
+      ``solvers/integrate.predict``)
   repeat ``iters`` times (Jacobi projections):
       rho_i and the gradient sums        ->  lambda_i = -C_i / (denom + eps)
       dx_i = (1/rho0) sum_j m_j (lambda_i + lambda_j + s_corr) gradW_ij
@@ -44,7 +45,8 @@ from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.pbf_folds import integer_pow as _integer_pow  # noqa: F401 (tests/test_torch_pbf.py)
 from sph_pie_torch.neighbors.pbf_folds import inv_r_of as _inv_r
 from sph_pie_torch.scenes import obstacles as obs_lib
-from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
+from sph_pie_torch.solvers import integrate
+from sph_pie_torch.solvers.wcsph import clamp_speed
 from sph_pie_torch.solvers.wcsph_binned import maybe_rebin, wall_axes
 from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
@@ -183,10 +185,6 @@ def _vorticity_force(params: FluidParams, grid, pos, mass, rho, omega, fold=pf.w
     return torch.stack([n_hat[:, 1] * w_z, -n_hat[:, 0] * w_z], dim=-1)
 
 
-def _max_norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp((v * v).sum(-1).amax(), min=0.0))
-
-
 @torch.no_grad()
 def step(
     params: FluidParams,
@@ -239,24 +237,15 @@ def step(
     with annotate("sph.predict"):
         if periodic:
             wall_mask = nb.axis_vector(walls, torch.bool, b.pos.device)[None, :]
-        valid = fmask(b)
-        acc = torch.zeros_like(b.pos) + params.gravity
-        acc = acc + boundary_accel(params, b.pos, b.vel, walls)
+        extra = None
         if obstacles is not None:
-            acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
-        vel = torch.where(valid, b.vel + params.dt * acc, 0.0)
-        vel = clamp_speed(params, vel)
-        x_star = torch.where(valid, b.pos + params.dt * vel, b.pos)
+            extra = obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
+        x_star, travel = integrate.predict(params, grid, b, walls, extra)
 
         # "gather": vel is left as it is (light mid-step rebins drop it);
         # "ride": the vel slots carry the step-start positions through full,
         # density-carrying rebins.
-        b = replace(
-            b,
-            pos=x_star,
-            vel=b.pos if ride else b.vel,
-            travel=b.travel + _max_norm(x_star - b.pos),
-        )
+        b = replace(b, pos=x_star, vel=b.pos if ride else b.vel, travel=travel)
         proj_cap = torch.clamp(pbf.proj_cap_h * params.h, max=0.5 * grid.skin)
 
     for _ in range(pbf.iters):
@@ -270,7 +259,7 @@ def step(
             n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
             dx = torch.where(v, dx * torch.clamp(proj_cap / n, max=1.0), 0.0)
             x = clip_box(b.pos + dx)
-            b = replace(b, pos=torch.where(v, x, b.pos), travel=b.travel + _max_norm(dx))
+            b = replace(b, pos=torch.where(v, x, b.pos), travel=b.travel + integrate.max_norm(dx))
 
     b = rebin_check(b, light=not ride, carry_density=ride)
     with annotate("sph.epilogue"):

@@ -6,17 +6,18 @@ Same physics, constants and update order as the reference's
   1. ``maybe_rebin`` (lazy Verlet-skin trigger), then on a periodic grid
      ``wrap_ghosts`` (the ghost cells take the opposite edge's images);
   2. density (``neighbors/density.py``), then the Tait EOS;
-  3. forces (``neighbors/forces.py``) plus gravity, the wall penalty and
-     the obstacle penalty (``scenes/obstacles.accel``);
-  4. symplectic Euler on the slots that move, the CFL clamp, XSPH;
-  5. the per-step displacement bound ``travel`` and the clock.
+  3. forces (``neighbors/forces.py``);
+  4. gravity, the wall penalty and the obstacle penalty
+     (``scenes/obstacles.accel``) added, then symplectic Euler on the slots
+     that move, the CFL clamp, XSPH and the per-step displacement bound
+     ``travel`` (``solvers/integrate.update``), and the clock.
 
 Each phase is a span of the profile while one records
 (``utils.profiling.annotate``): ``sph.rebin_check`` (1), ``sph.density``
-(2), ``sph.forces`` (3), ``sph.integrate`` (4 and 5).
+(2), ``sph.forces`` (3), ``sph.integrate`` (4).
 
-On CUDA tensors the pair sums and the rebin placement run the hand-written
-kernels; on CPU tensors their plain PyTorch versions.
+On CUDA tensors the pair sums, the update and the rebin placement run the
+hand-written kernels; on CPU tensors their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.forces import forces
 from sph_pie_torch.scenes import obstacles as obs_lib
-from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
+from sph_pie_torch.solvers import integrate
 from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
 
@@ -105,29 +106,13 @@ def step(
 
     with annotate("sph.forces"):
         acc, xsph = forces(params, grid, b)
-        acc = acc + params.gravity
-        acc = acc + boundary_accel(params, b.pos, b.vel, wall_axes(grid))
-        if obstacles is not None:
-            acc = acc + obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
 
     with annotate("sph.integrate"):
-        move = (b.valid & ~nb.frozen_mask(grid, b))[:, None]
-        vel = torch.where(move, b.vel + params.dt * acc, 0.0)
-        vel = clamp_speed(params, vel)
-        vel_adv = torch.where(move, vel + params.xsph_eps * xsph, 0.0)
-        pos = torch.where(move, b.pos + params.dt * vel_adv, b.pos)
-
-        # Hard per-step displacement bound for the Verlet-skin guarantee.
-        step_disp = params.dt * torch.sqrt(
-            torch.clamp((vel_adv * vel_adv).sum(dim=-1).amax(), min=0.0)
-        )
-        return replace(
-            b,
-            pos=pos,
-            vel=vel,
-            travel=b.travel + step_disp,
-            sim_time=b.sim_time + params.dt,
-        )
+        extra = None
+        if obstacles is not None:
+            extra = obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
+        pos, vel, travel = integrate.update(params, grid, b, wall_axes(grid), acc, xsph, extra)
+        return replace(b, pos=pos, vel=vel, travel=travel, sim_time=b.sim_time + params.dt)
 
 
 def simulate(
