@@ -12,8 +12,10 @@ the metric is then left out.
 
 The window: the driver's segments back to back for ``seconds``, stopped at
 the first step boundary after that. Set-up (imports, the kernel library,
-inputs, the program's scene, a warm-up through the segment start, a rebin
-and the check's gathers) is all that comes before it. ``--trace 1`` counts
+inputs, the program's scene, the check's reference module, a warm-up
+through the segment start, a rebin and the check's gathers) is all that
+comes before it. Once the check is done, a run whose process holds JAX or
+the JAX package stops with no result. ``--trace 1`` counts
 the host syncs of the window's steps outside the profiled slice, profiles
 the steps the workload's ``profile`` names, and keeps the window open until
 that slice is done.
@@ -147,6 +149,7 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, bench: Bench | Non
     builder = bench.module("scenes", cfg["builder"])
     inp = builder.inputs(cfg, seed, dev)
     drv = bench.module("traffic", work["driver"]).Driver(cfg, work, builder, inp, spans=trace)
+    judge.module(work)
     if fault is not None:
         fault(drv)
     warm(drv, work)
@@ -217,10 +220,6 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, bench: Bench | Non
             seg_ends.append(time.perf_counter() - start)
         _sync(dev)
     window_s = time.perf_counter() - start
-    found = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-    if found:
-        raise SystemExit(f"h100bench: modules loaded in this process that the benchmark must "
-                         f"not run: {found}")
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     step_ms = None
     if events is not None:
@@ -249,7 +248,14 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, bench: Bench | Non
             values[m["name"]] = {"value": v, "unit": m["unit"]}
 
     limits = work["check"]["limits"]
+    judge_t0 = time.perf_counter()
     nums = judge.numbers(cfg, work, inp, snap) if snap is not None else {}
+    judge_s = time.perf_counter() - judge_t0
+    # After the check too, so that what the check loads is seen as well.
+    found = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    if found:
+        raise SystemExit(f"h100bench: modules loaded in this process that the benchmark must "
+                         f"not run: {found}")
     check = {k: (nums.get(k), v) for k, v in limits.items()}
     device_info = {"platform": "gpu" if cuda else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
@@ -264,7 +270,8 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *, bench: Bench | Non
     result = {"correct": judge.verdict(limits, nums), "attempted": segments,
               "failed": int(failed), "metrics": values, "device": device_info,
               "rebins_before_check": int(snap_rebins),
-              "segment_ends_s": seg_ends}
+              "segment_ends_s": seg_ends, "judge_s": judge_s,
+              "result_s": time.perf_counter() - t0}
     if trace and sl is not None and sl.ops:
         result["breakdown"] = tracing.breakdown(sl)
     return result, check

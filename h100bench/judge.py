@@ -2,14 +2,21 @@
 
 The timed path's state after the workload's ``check.steps`` steps of the
 window's first segment (every segment starts from the same inputs) is
-held, particle by particle in input order, against the plain reference
+held, row by row in input order, against the plain reference
 (``reference/``) run in float64 from the same inputs for as many steps.
-The numbers compared, each against its limit in the workload file:
+The reference is the module under ``reference/`` that the workload's
+``check.reference`` names, ``steps`` (the solver's steps, the workload's
+obstacles in them) where it names none. The numbers compared, each
+against its limit in the workload file:
 
-  lost       particles that have no slot (a drop by a full cell); limit 0
+  lost       rows that exist in one state and not in the other: a row
+             active in the reference with no slot in the program (a drop
+             by a full cell), or the other way round; limit 0
   pos_gap    max |x - x_ref| / h
   vel_gap    max |v - v_ref| / max |v_ref|
   rho_gap    max |rho - rho_ref| / rho0 (the density of the last step)
+  time_gap   |t - t_ref| / dt, the state's clock against the reference's
+             (the time its obstacles move by), where the reference gives one
   frame_gap  the share of the last step's frame's pixels, in %, that are off
              the reference's by more than one count (one count is the
              uint8 quantisation), where the workload draws a frame; the
@@ -17,32 +24,35 @@ The numbers compared, each against its limit in the workload file:
              particle in (the placement itself is held by the numbers above:
              a particle in a wrong cell has wrong neighbours)
 
+The gaps are taken over the rows that exist in both.
+
 ``control`` is the reference put in the program's place in bfloat16, the
 precision below the configuration's float32: its numbers must fail.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
-from h100bench.reference import frame, geometry, pbf, sph, wcsph
+from h100bench.reference import frame, geometry, sph
+
+
+def module(work: dict):
+    """The reference module the workload's ``check.reference`` names,
+    ``reference/steps.py`` where it names none. The harness loads it in
+    its set-up, before the window."""
+    name = work["check"].get("reference", "steps")
+    return importlib.import_module(f"h100bench.reference.{name}")
 
 
 def reference(cfg: dict, work: dict, inp, dtype: torch.dtype) -> dict:
-    """The reference's pos, vel and rho after ``check.steps`` steps, and
-    its masses, computed in ``dtype``."""
-    p = sph.physics(cfg)
-    pos, vel = inp.pos.to(dtype), inp.vel.to(dtype)
-    mass = torch.full((pos.shape[0],), inp.mass, dtype=dtype, device=pos.device)
-    rho = torch.zeros_like(mass)
-    solver = work["solver"]
-    knobs = pbf.knobs(solver) if solver["name"] == "pbf" else None
-    for _ in range(work["check"]["steps"]):
-        if knobs is None:
-            pos, vel, rho, _ = wcsph.step(p, pos, vel, mass)
-        else:
-            pos, vel, rho = pbf.step(p, knobs, pos, vel, mass, rho)
-    return {"pos": pos, "vel": vel, "rho": rho, "mass": mass}
+    """The reference's state after ``check.steps`` steps, computed in
+    ``dtype``: pos, vel, rho and mass of each input row, ``active`` where
+    not every row exists and ``time`` where the scene keeps a clock
+    (``run`` of ``module(work)``)."""
+    return module(work).run(cfg, work, inp, dtype)
 
 
 def draw(cfg: dict, work: dict, cell: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
@@ -54,23 +64,35 @@ def draw(cfg: dict, work: dict, cell: torch.Tensor, mass: torch.Tensor) -> torch
 def numbers(cfg: dict, work: dict, inp, got: dict) -> dict[str, float]:
     """The compared numbers of the state ``got`` (per particle: pos, vel,
     rho, cell, alive; ``frame`` where the workload draws one)."""
+    return compare(cfg, work, reference(cfg, work, inp, torch.float64), got)
+
+
+def compare(cfg: dict, work: dict, ref: dict, got: dict) -> dict[str, float]:
+    """The compared numbers of ``got`` against the reference's state
+    ``ref``."""
     p = sph.physics(cfg)
-    ref = reference(cfg, work, inp, torch.float64)
     alive = got["alive"]
     n = alive.shape[0]
-    if not bool(alive.any()):
+    active = ref.get("active")
+    if active is None:
+        active = torch.ones_like(alive)
+    both = alive & active
+    lost = float(int((alive != active).sum()))
+    if not bool(both.any()):
         return {"lost": float(n)}
 
     def gap(name):
         d = got[name].to(torch.float64) - ref[name]
-        return float(d.reshape(n, -1).norm(dim=1)[alive].max())
+        return float(d.reshape(n, -1).norm(dim=1)[both].max())
 
     out = {
-        "lost": float(n - int(alive.sum())),
+        "lost": lost,
         "pos_gap": gap("pos") / p.h,
-        "vel_gap": gap("vel") / max(float(ref["vel"].norm(dim=1).max()), 1e-30),
+        "vel_gap": gap("vel") / max(float(ref["vel"][active].norm(dim=1).max()), 1e-30),
         "rho_gap": gap("rho") / p.rest_density,
     }
+    if "time" in ref:
+        out["time_gap"] = abs(float(got["time"]) - float(ref["time"])) / p.dt
     if work.get("frame"):
         want = draw(cfg, work, got["cell"], ref["mass"])
         off = (got["frame"].to(torch.int64) - want.to(torch.int64)).abs() > 1
@@ -80,10 +102,11 @@ def numbers(cfg: dict, work: dict, inp, got: dict) -> dict[str, float]:
 
 def control(cfg: dict, work: dict, inp) -> dict:
     """The control's state: the reference in bfloat16 in the program's
-    place, its particles in the cells of their own positions, its frame
-    drawn in bfloat16 from them."""
+    place, the rows it holds active alive, its particles in the cells of
+    their own positions, its frame drawn in bfloat16 from them."""
     out = reference(cfg, work, inp, torch.bfloat16)
-    out["alive"] = torch.ones(out["pos"].shape[0], dtype=torch.bool, device=out["pos"].device)
+    out["alive"] = out.get("active", torch.ones(out["pos"].shape[0], dtype=torch.bool,
+                                                device=out["pos"].device))
     out["cell"] = geometry.cell_of(cfg, geometry.grid(cfg), out["pos"])
     if work.get("frame"):
         out["frame"] = draw(cfg, work, out["cell"], out["mass"])

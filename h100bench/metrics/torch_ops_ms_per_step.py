@@ -11,7 +11,7 @@ MOVES = "particle_steps_per_s"
 # the file's anonymous namespace.
 CSRC = r"^void \(anonymous namespace\)::(cell_flags|density_runs|density_every_slot|" \
        r"forces_runs|expand_runs|expand_slots|pbf_runs|pbf_walk|center_slab_\w+|" \
-       r"forces_mma_runs)<"
+       r"forces_mma_runs|integrate_slots)<"
 
 
 def read(r):

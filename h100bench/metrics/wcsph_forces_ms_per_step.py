@@ -1,6 +1,7 @@
 """Device time of the work enqueued inside the program's ``sph.forces``
-spans (``solvers/wcsph_binned.step``: the forces fold, gravity, the wall
-penalty and the obstacles) in the profiled slice, ms a step
+spans (``solvers/wcsph_binned.step``: the per-slot terms and the forces
+fold; gravity, the walls and the obstacles are in ``sph.integrate``) in the
+profiled slice, ms a step
 (``spans.device_us``: the device operations paired with the host's
 enqueues in order)."""
 

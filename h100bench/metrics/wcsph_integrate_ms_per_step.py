@@ -1,6 +1,7 @@
 """Device time of the work enqueued inside the program's ``sph.integrate``
-spans (``solvers/wcsph_binned.step``: the move mask, symplectic Euler,
-the speed clamp, XSPH, ``travel`` and the clock) in the profiled slice,
+spans (``solvers/wcsph_binned.step``: the obstacle term, then one
+``integrate_slots`` launch for gravity, the walls, symplectic Euler, the
+speed clamp, XSPH and ``travel``, and the clock) in the profiled slice,
 ms a step (``spans.device_us``: the device operations paired with the
 host's enqueues in order)."""
 

@@ -1,6 +1,7 @@
 """One PBF step (Macklin & Mueller 2013), plainly.
 
-  predict   v* = clamp(v + dt (g + walls)),  x* = x + dt v*
+  predict   v* = clamp(v + dt (g + walls [+ extra])),  x* = x + dt v*
+            (``extra``: an acceleration of (pos, vel), the obstacles')
   iters x   over the pairs in support of x*, with |dW| = spiky, gw = |dW|/r:
               rho_i    = sum_j m_j W
               lambda_i = -(rho_i/rho0 - 1) / ((sum_j |m_j gw d|^2
@@ -43,11 +44,14 @@ def knobs(solver: dict) -> Knobs:
     return Knobs(**{f.name: solver[f.name] for f in dataclasses.fields(Knobs)})
 
 
-def step(p: sph.Physics, k: Knobs, pos, vel, mass, rho_prev):
+def step(p: sph.Physics, k: Knobs, pos, vel, mass, rho_prev, extra=None):
     """(pos, vel, rho) after one step."""
     n = pos.shape[0]
     rho0 = p.rest_density
-    v = sph.clamp_speed(p, vel + p.dt * (sph.vector(p, p.gravity, pos) + sph.walls(p, pos, vel)))
+    body = sph.vector(p, p.gravity, pos) + sph.walls(p, pos, vel)
+    if extra is not None:
+        body = body + extra(pos, vel)
+    v = sph.clamp_speed(p, vel + p.dt * body)
     x = pos + p.dt * v
     cap = min(k.proj_cap_h * p.h, 0.5 * p.skin)
     inv_wdq = 1.0 / (p.c_poly6 * (p.h * p.h - (k.s_corr_dq * p.h) ** 2) ** 3)

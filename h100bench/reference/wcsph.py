@@ -6,12 +6,13 @@ With d = x_i - x_j, r = |d|, over the pairs in support:
   p_i    = Tait(rho_i)
   acc_i  = - sum_j [m_j (p_i/rho_i^2 + p_j/rho_j^2) |dW|(r) + st m_j C(r)] d / r
            + mu / rho_i sum_j (m_j / rho_j) lapW(r) (v_j - v_i)
-           + g + walls(x_i, v_i)
+           + g + walls(x_i, v_i) [+ extra(x_i, v_i)]
   xsph_i = sum_j (m_j / rho_j) W(r^2) (v_j - v_i)      (when xsph_eps > 0)
   v_i'   = clamp(v_i + dt acc_i);  x_i' = x_i + dt (v_i' + xsph_eps xsph_i)
 
 The step's state is what the program's step hands on: x', v' (without the
-XSPH term), and the rho and p of the step.
+XSPH term), and the rho and p of the step. ``extra`` is an acceleration
+of (pos, vel) added last, as the program adds its obstacles' penalty.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 from h100bench.reference import neighbors, sph
 
 
-def step(p: sph.Physics, pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor):
+def step(p: sph.Physics, pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
+         extra=None):
     """(pos, vel, rho, pressure) after one step from (pos, vel)."""
     n = pos.shape[0]
     i, j = neighbors.pairs(pos, p.h)
@@ -44,6 +46,8 @@ def step(p: sph.Physics, pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tenso
     acc = acc + p.viscosity * inv_rho[:, None] * neighbors.fold(
         n, i, (m_rho[j] * sph.visc_lap(p, r))[:, None] * dv)
     acc = acc + sph.vector(p, p.gravity, pos) + sph.walls(p, pos, vel)
+    if extra is not None:
+        acc = acc + extra(pos, vel)
 
     vel = sph.clamp_speed(p, vel + p.dt * acc)
     adv = vel

@@ -43,22 +43,45 @@ def _enqueues(sl) -> list[float]:
     return out
 
 
+def _paired(sl, name):
+    """(the spans named ``name``, the host's enqueue starts, the device
+    operations by start) where they pair; None otherwise."""
+    spans = _intervals(sl, name)
+    starts = _enqueues(sl)
+    if not spans or not sl.ops or len(starts) != len(sl.ops):
+        return None
+    return spans, starts, sorted(sl.ops, key=lambda op: op[1])
+
+
 def device_us(sl, name: str) -> tuple[float, int] | None:
     """(device microseconds of the work enqueued inside the spans named
     ``name``, the number of those spans) in the slice; None where the slice
     has no such span, no device operation, or enqueues and device
     operations that do not pair."""
-    spans = _intervals(sl, name)
-    starts = _enqueues(sl)
-    if not spans or not sl.ops or len(starts) != len(sl.ops):
+    got = _paired(sl, name)
+    if got is None:
         return None
+    spans, starts, ops = got
     cum = [0.0]
-    for _, s, e in sorted(sl.ops, key=lambda op: op[1]):
+    for _, s, e in ops:
         cum.append(cum[-1] + (e - s))
     us = 0.0
     for a, b in spans:
         us += cum[bisect.bisect_right(starts, b)] - cum[bisect.bisect_left(starts, a)]
     return us, len(spans)
+
+
+def ops_in(sl, name: str) -> tuple[list[tuple[str, float, float]], int] | None:
+    """(the device operations enqueued inside the spans named ``name``, the
+    number of those spans); None where ``device_us`` gives None."""
+    got = _paired(sl, name)
+    if got is None:
+        return None
+    spans, starts, ops = got
+    out = []
+    for a, b in spans:
+        out += ops[bisect.bisect_left(starts, a):bisect.bisect_right(starts, b)]
+    return out, len(spans)
 
 
 def idle_us(sl, name: str) -> tuple[float, int] | None:

@@ -29,7 +29,9 @@ SMALL = {"dam3d_1m": 3000, "dam2d_4k": 400}
 def shrink(root: Path) -> None:
     """Cut the copy under ``root`` to CPU size: fewer particles (the sizes
     the files state follow), segments of 20 steps, checks of 3, a profiled
-    slice of 5 steps in the second segment."""
+    slice of 5 steps in the second segment; where a workload has epochs,
+    epochs of 8 steps, a warm-up through the first boundary and checks of
+    11 steps, so that the check and the slice each cross a boundary."""
     for name, n in SMALL.items():
         path = root / "h100bench" / "configs" / f"{name}.json"
         cfg = json.loads(path.read_text())
@@ -42,6 +44,9 @@ def shrink(root: Path) -> None:
         work.update(segment_steps=20, warm_steps=2,
                     profile={"segment": 1, "from_step": 5, "steps": 5})
         work["check"]["steps"] = 3
+        if "epoch_steps" in work:
+            work.update(epoch_steps=8, warm_steps=9)
+            work["check"]["steps"] = 11
         path.write_text(json.dumps(work))
 
 

@@ -48,9 +48,14 @@ def test_top_level_names_are_compared_whole():
     assert "sph_pie_tpu.solvers".split(".")[0] in FORBIDDEN
 
 
-def test_a_run_loads_no_jax(tmp_path):
-    """A whole run at CPU size, in a fresh process: afterwards sys.modules
-    holds none of the forbidden top-level names."""
+CELLS = [w["name"] for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_run_loads_no_jax(tmp_path, cell):
+    """A whole run of each cell at CPU size, the check included, in a fresh
+    process: afterwards sys.modules holds none of the forbidden top-level
+    names."""
     code = f"""
 import json, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -59,7 +64,7 @@ from h100bench import harness
 from h100bench.tests.conftest import copy_bench, shrink
 root = copy_bench(Path({str(tmp_path)!r}))
 shrink(root)
-harness.run("dam2d_4k.wcsph", 5, 0.2, True, bench=harness.Bench(root / "h100bench"), device="cpu")
+harness.run({cell!r}, 5, 0.2, True, bench=harness.Bench(root / "h100bench"), device="cpu")
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -67,3 +72,33 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
     assert out.returncode == 0, out.stderr[-3000:]
     loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
     assert "sph_pie_torch" in loaded and not loaded & FORBIDDEN
+
+
+def test_a_module_the_check_loads_stops_the_run(small, monkeypatch):
+    """A forbidden module that first appears while the check runs, after
+    the window, stops the run with no result; the reference module itself
+    is loaded in the set-up, before the window."""
+    import types
+
+    from h100bench import harness, judge
+
+    steps = judge.module(small.workload("dam2d_4k.wcsph"))
+    calls = []
+
+    def run(*args):
+        calls.append("run")
+        monkeypatch.setitem(sys.modules, "flax", types.ModuleType("flax"))
+        return steps.run(*args)
+
+    def module(work):
+        calls.append("module")
+        return types.SimpleNamespace(run=run)
+
+    def fault(drv):
+        real = drv.step
+        drv.step = lambda b: (calls.append("step"), real(b))[1]
+
+    monkeypatch.setattr(judge, "module", module)
+    with pytest.raises(SystemExit, match="flax"):
+        harness.run("dam2d_4k.wcsph", 7, 0.1, False, bench=small, device="cpu", fault=fault)
+    assert calls[0] == "module" and calls[-1] == "run" and "step" in calls

@@ -16,7 +16,8 @@ MANIFEST = json.loads((REPO / "BENCHMARK.json").read_text())
 BENCH = harness.Bench()
 READERS = ["wcsph_density_ms_per_step", "wcsph_forces_ms_per_step",
            "wcsph_integrate_ms_per_step", "pbf_predict_ms_per_step", "pbf_project_ms_per_step",
-           "pbf_epilogue_ms_per_step", "rebin_ms", "rebin_check_idle_ms_per_step"]
+           "pbf_epilogue_ms_per_step", "rebin_ms", "rebin_check_idle_ms_per_step",
+           "obstacle_ms_per_step", "epoch_boundary_ms"]
 
 # One step by hand (us): a check whose second read fires a rebin, then the
 # density phase; a runtime launch that calls the driver is one enqueue.
@@ -35,6 +36,22 @@ HOST = [
 ]
 OPS = [("check", 2.0, 4.0), ("Memcpy DtoH", 5.0, 6.0), ("sort", 12.0, 15.0),
        ("density_runs", 25.0, 35.0), ("tait", 35.0, 40.0)]
+
+
+# After it, the update (the kernel, then the clock's add) with an obstacle
+# term before it, and an epoch boundary.
+LATER_HOST = [
+    ("sph.integrate", 41.0, 50.0),
+    ("cudaLaunchKernel", 41.5, 42.0),
+    ("cuLaunchKernel", 43.0, 43.5),
+    ("cudaLaunchKernel", 44.0, 44.5),
+    ("h100bench.epoch", 51.0, 60.0),
+    ("cudaLaunchKernel", 52.0, 52.5),
+    ("cuLaunchKernel", 53.0, 53.5),
+]
+LATER_OPS = [("elementwise obstacle", 42.0, 45.0),
+             ("void (anonymous namespace)::integrate_slots<float, 3, 0>(Args<float>)", 45.0, 47.0),
+             ("add", 47.0, 47.5), ("sort", 53.0, 57.0), ("expand_runs", 57.0, 58.0)]
 
 
 def hand(ops=OPS, host=HOST, steps=1) -> tracing.Slice:
@@ -93,6 +110,16 @@ def test_reader_on_the_hand_made_step(reader, want):
     assert BENCH.module("metrics", reader).read(reading(hand())) == pytest.approx(want)
 
 
+@pytest.mark.parametrize("reader,want", [
+    ("obstacle_ms_per_step", 0.0035),   # all under sph.integrate but the kernel
+    ("wcsph_integrate_ms_per_step", 0.0055),
+    ("epoch_boundary_ms", 0.005),
+])
+def test_reader_on_the_hand_made_update_and_boundary(reader, want):
+    sl = hand(ops=OPS + LATER_OPS, host=HOST + LATER_HOST)
+    assert BENCH.module("metrics", reader).read(reading(sl)) == pytest.approx(want)
+
+
 @pytest.mark.parametrize("reader", READERS)
 def test_reader_listed_where_its_span_opens(reader):
     """Each new metric lists the cells whose solver opens its span."""
@@ -134,7 +161,8 @@ def test_traced_cpu_run_leaves_the_device_metrics_out(small):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["dam3d_1m.wcsph", "dam3d_1m.pbf_frame"])
+@pytest.mark.parametrize("cell", ["dam3d_1m.wcsph", "dam3d_1m.pbf_frame",
+                                  "dam3d_1m.wcsph_sphere"])
 def test_traced_card_run_reads_the_spans(card, small, cell):
     """At CPU size on the card: every new metric of the cell reads a number,
     and the device time under the step's top-level spans is the slice's
@@ -158,6 +186,8 @@ def test_traced_card_run_reads_the_spans(card, small, cell):
     sl = captured[0]
     top = {"dam3d_1m.wcsph": ["sph.rebin_check", "sph.density", "sph.forces", "sph.integrate"],
            "dam3d_1m.pbf_frame": ["sph.rebin_check", "sph.predict", "sph.project",
-                                  "sph.epilogue", "h100bench.frame"]}[cell]
+                                  "sph.epilogue", "h100bench.frame"],
+           "dam3d_1m.wcsph_sphere": ["sph.rebin_check", "sph.density", "sph.forces",
+                                     "sph.integrate", "h100bench.epoch"]}[cell]
     under = sum(spans.device_us(sl, name)[0] for name in top)
     assert under == pytest.approx(sum(e - s for _, s, e in sl.ops), rel=1e-9)

@@ -5,7 +5,9 @@ run's start) and then steps ``segment_steps`` steps of the workload's
 solver: ``wcsph`` (``solvers.wcsph_binned.step``) or ``pbf``
 (``solvers.pbf.step`` with the workload's knobs), each step followed by
 the workload's ``frame`` when it has one (``render.splat.render_binned_u8``,
-its sum kept on the device as a preview's consumer would read it). Every
+its sum kept on the device as a preview's consumer would read it). Where the
+workload has ``obstacles`` (``reference/obstacles.py`` gives the entry's
+form), the step takes them, made by ``scenes.obstacles.make``. Every
 segment does the same work, whatever the program's speed.
 
 With ``spans`` each call into the program is a named range of the
@@ -21,6 +23,26 @@ import torch
 from h100bench.reference import sph
 
 
+def obstacles(work: dict, like: torch.Tensor):
+    """The program's obstacles of the workload's ``obstacles`` entry, in the
+    dtype and on the device of ``like``."""
+    from sph_pie_torch.scenes import obstacles as obs_lib
+
+    obs, dim = work["obstacles"], like.shape[1]
+
+    def motion(shape):
+        return (shape.get("lin", [0.0] * dim), shape.get("amp", [0.0] * dim),
+                shape.get("freq", 0.0), shape.get("phase", 0.0))
+
+    spheres, boxes = obs.get("spheres", []), obs.get("boxes", [])
+    return obs_lib.make(
+        dim, spheres=[(s["center"], s["radius"]) for s in spheres],
+        boxes=[(b["lo"], b["hi"]) for b in boxes], stiffness=obs["stiffness"],
+        damping=obs["damping"], ramp_dist=obs["ramp_dist"],
+        sphere_motions=[motion(s) for s in spheres], box_motions=[motion(b) for b in boxes],
+        dtype=like.dtype, device=like.device)
+
+
 class Driver:
     def __init__(self, cfg: dict, work: dict, builder, inp, spans: bool = False):
         from sph_pie_torch.neighbors import binned as nb
@@ -33,13 +55,14 @@ class Driver:
         self.frame = work.get("frame")
         self.spans = spans
         self._nb, self._splat = nb, splat
+        self.obstacles = obstacles(work, inp.pos) if "obstacles" in work else None
         solver = work["solver"]
         if solver["name"] == "wcsph":
-            self._step = lambda b: wcsph_binned.step(self.params, self.grid, b)
+            self._step = lambda b: wcsph_binned.step(self.params, self.grid, b, self.obstacles)
         elif solver["name"] == "pbf":
             knobs = {k: v for k, v in solver.items() if k != "name"}
             pp = pbf.make_pbf_params(**knobs, dtype=inp.pos.dtype, device=inp.pos.device)
-            self._step = lambda b: pbf.step(self.params, self.grid, pp, b)
+            self._step = lambda b: pbf.step(self.params, self.grid, pp, b, self.obstacles)
         else:
             raise ValueError(f"segments: no solver {solver['name']!r}")
         p = sph.physics(cfg)
@@ -69,12 +92,14 @@ class Driver:
 
     def particles(self, b) -> dict:
         """Per particle, in input order: pos, vel, rho (the step's density),
-        cell (the padded-grid cell of its slot) and alive (it has a slot)."""
+        cell (the padded-grid cell of its slot) and alive (it has a slot);
+        and the state's clock, time (the simulated seconds the obstacles
+        move by)."""
         S = self.grid.num_slots
         alive = b.slot_of < S
         slot = torch.clamp(b.slot_of, 0, S - 1).to(torch.int64)
         return {"pos": b.pos[slot], "vel": b.vel[slot], "rho": b.density[slot],
-                "cell": slot // self.grid.cap, "alive": alive}
+                "cell": slot // self.grid.cap, "alive": alive, "time": b.sim_time.clone()}
 
     def failed(self, b) -> torch.Tensor:
         """1 on the device where the state fails: a position not finite or
