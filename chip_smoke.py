@@ -1991,7 +1991,8 @@ def phase_e3(b_ms: float) -> None:
     accel_ms = cuda_ms(lambda: obstacles.accel(obs, b.pos, b.vel, b.sim_time), 10)
 
     def boundary():
-        flat = emitter.emit_due(nb.unbin(g, b, s.state.capacity), em, steps)
+        flat = emitter.emit_due(nb.unbin(g, b, s.state.capacity), em, steps, p.dt,
+                                emitter.CLEARANCE * p.h)
         return nb.bin_state(g, flat, s.boundary, sim_time=float(steps) * p.dt)
 
     boundary_ms = cuda_ms(boundary, 3)

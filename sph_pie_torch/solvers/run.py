@@ -3,8 +3,11 @@
 Each epoch emits the particles that are due, bins the flat state, rolls
 ``epoch_steps`` steps of WCSPH (or PBF) and unbins. The loop is an eager
 Python loop over epochs; the state stays on its device throughout.
-Emission semantics: a particle whose spawn step falls inside an epoch
-activates at that epoch's start.
+Emission semantics: a particle whose spawn step s falls inside an epoch
+activates at that epoch's start k, where its spawn velocity would have
+carried it since s, unless an active particle lies nearer than
+``emitter.CLEARANCE`` h to that place; then it waits for the next epoch
+(``emitter.emit_due`` with the step's dt and that clearance).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def run_epochs(
     Returns (state, overflow): overflow is the largest per-epoch count of
     particles dropped by full cells (a 0-d int32 tensor). A dropped
     particle is inactive after the epoch's unbin, so the emitter re-emits
-    it at its spawn position at the next epoch.
+    it at a later epoch, as a late particle joins.
 
     ``pbf_params`` selects the PBF solver for the epochs instead of WCSPH.
     The unbin/bin round trip carries density (``nb.bin_state``), so PBF's
@@ -47,7 +50,8 @@ def run_epochs(
     for e in range(int(n_epochs)):
         step0 = int(start_step) + e * int(epoch_steps)
         if emitter is not None:
-            state = em_lib.emit_due(state, emitter, step0)
+            state = em_lib.emit_due(state, emitter, step0, params.dt,
+                                    em_lib.CLEARANCE * params.h)
         # step0 in the state's dtype times dt, as the reference's clock
         b = nb.bin_state(grid, state, boundary, sim_time=float(step0) * params.dt)
         if pbf_params is not None:

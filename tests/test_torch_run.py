@@ -18,6 +18,7 @@ from _torch_parity import assert_held, jax_fields
 from sph_pie_torch import convert
 from sph_pie_torch.neighbors import binned as tnb
 from sph_pie_torch.scenes import builders as tb
+from sph_pie_torch.scenes import emitter as tem
 from sph_pie_torch.scenes import obstacles as tobs
 from sph_pie_torch.solvers import pbf as tpbf
 from sph_pie_torch.solvers import run as trun
@@ -34,15 +35,33 @@ from sph_pie_tpu.solvers import wcsph_binned as jw
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def _ref_emit_due(state, emitter, step0, dt, h):
+    """The reference's ``emit_due`` with the port's ``run_epochs`` rule: a
+    row that joins after its spawn step is moved on along its spawn
+    velocity by (step0 - spawn step) dt, and a row with an active row
+    nearer than ``CLEARANCE`` h to that place stays as it was."""
+    out = jem.emit_due(state, emitter, step0)
+    late = jnp.asarray(step0 - emitter.spawn_step, dt.dtype) * dt
+    place = out.pos + emitter.spawn_vel * late[:, None]
+    gap = jnp.linalg.norm(place[:, None, :] - state.pos[None, :, :], axis=-1)
+    near = ((gap < tem.CLEARANCE * h) & state.active[None, :]).any(1)
+    joined = out.active & ~state.active & ~near
+    j2 = joined[:, None]
+    return dataclasses.replace(
+        out, pos=jnp.where(j2, place, state.pos), vel=jnp.where(j2, out.vel, state.vel),
+        mass=jnp.where(joined, out.mass, state.mass), active=state.active | joined)
+
+
 def _ref_run_epochs(params, grid, state, emitter, obstacles, epoch_steps, n_epochs,
                     start_step=0, pbf_params=None):
     """The reference's epoch loop (``sph_pie_tpu/solvers/run.py``, ``epoch``)
-    from its own functions, one epoch at a time. Returns (state, overflow)."""
+    from its own functions, one epoch at a time, with the port's emission
+    (``_ref_emit_due``). Returns (state, overflow)."""
     overflow = 0
     for e in range(n_epochs):
         step0 = start_step + e * epoch_steps
         if emitter is not None:
-            state = jem.emit_due(state, emitter, step0)
+            state = _ref_emit_due(state, emitter, step0, params.dt, params.h)
         b = jnb.bin_state(grid, state, None,
                           sim_time=jnp.asarray(step0, params.dt.dtype) * params.dt)
         if pbf_params is not None:
@@ -76,8 +95,8 @@ def test_epoch_edge_cases_match_reference():
     so that epoch bins and steps a state with no active row. Cells of cap 4
     take rows that arrive together at one spawn position, so rows drop:
     they leave the active set at the epoch's unbin (whatever the last
-    binning's overflow says) and the emitter re-emits them at their spawn
-    position the next epoch. Active masks are compared, not just
+    binning's overflow says) and the emitter re-emits them the next epoch,
+    along their spawn velocity as a late row joins. Active masks are compared, not just
     positions."""
     spec = json.loads((ROOT / "config" / "scene-faucet-2d.json").read_text())
     spec["emitters"][0].update(speed=3.0, t_start=0.005)
@@ -129,13 +148,15 @@ def test_run_epochs_moving_obstacle_keeps_phase():
 
 def test_run_scene_float32_matches_reference_run_scene():
     """The reference's own jitted ``run_scene`` (float32) on BASELINE config
-    #2's scene at 512, 4 epochs of 50 steps: active mask equal, |dpos| <=
-    1e-5 (float32 rounding of a free-falling stream, domain 1 m)."""
+    #2's scene at 512, 4 epochs of 53 steps, the stream's row interval, so
+    that every row joins at its spawn step and the port's emission is the
+    reference's: active mask equal, |dpos| <= 1e-5 (float32 rounding of a
+    free-falling stream, domain 1 m)."""
     js = jb.emitter_2d(512)
-    want, jov = jrun.run_scene(js, 200)
-    got, tov = trun.run_scene(tb.emitter_2d(512, device="cpu"), 200)
+    want, jov = jrun.run_scene(js, 212, 53)
+    got, tov = trun.run_scene(tb.emitter_2d(512, device="cpu"), 212, 53)
     assert_held(got, want, 1e-5)
-    assert int(tov) == int(jov) == 0
+    assert int(tov) == int(jov) == 0 and int(got.active.sum()) == 16
 
 
 def test_run_scene_plain_dam_break_matches_simulate():

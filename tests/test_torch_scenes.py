@@ -133,7 +133,8 @@ STREAMS = [
 def test_plan_stream_merge_and_emit_due_bit_for_bit(dtype):
     """``plan_stream`` (each case), ``merge_schedules`` of the two disjoint
     2D plans and ``emit_due`` at several step counts, equal to the
-    reference's bit for bit."""
+    reference's bit for bit (``emit_due`` with dt = clearance = 0, the
+    reference's rule)."""
     with jax.enable_x64(dtype == "float64"):
         jd, td = getattr(jnp, dtype), getattr(torch, dtype)
         plans = []
@@ -149,7 +150,7 @@ def test_plan_stream_merge_and_emit_due_bit_for_bit(dtype):
         assert_same(tem.no_emitter(9, 3, td, device="cpu"), jem.no_emitter(9, 3, jd))
         ts, js = tstate.allocate(300, 2, td, device="cpu"), jstate.allocate(300, 2, jd)
         for step in (0, 45, 60, 120, 1000):
-            ts, js = tem.emit_due(ts, tm, step), jem.emit_due(js, jm, step)
+            ts, js = tem.emit_due(ts, tm, step, 0.0, 0.0), jem.emit_due(js, jm, step)
             assert_same(ts, js)
 
 

@@ -4,7 +4,9 @@
 records, and is otherwise one shared no-op context; each step records its
 phases in order, a rebin nested in its check; ``maybe_rebin.checks`` and
 ``drift_reads`` count the check's two host reads; and a step's result is
-the same bits with and without a profiler recording.
+the same bits with and without a profiler recording. The scene runner's
+emission records ``sph.emit`` once an epoch and ``emit_due.calls`` counts
+it, with the same bits as the emission without its span.
 """
 
 import pytest
@@ -12,7 +14,8 @@ import torch
 from torch.autograd import DeviceType
 
 from sph_pie_torch.scenes import builders as tb
-from sph_pie_torch.solvers import pbf, wcsph_binned
+from sph_pie_torch.scenes import emitter
+from sph_pie_torch.solvers import pbf, run, wcsph_binned
 from sph_pie_torch.utils import profiling
 from sph_pie_torch.utils.struct import replace
 
@@ -143,3 +146,67 @@ def test_step_is_the_same_bits_under_the_profiler(scene, solver):
     for k, v in vars(plain).items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(v, getattr(traced, k)), k
+
+
+# The faucet at 256 rows: three epochs of 40 steps emit at steps 0 and 80.
+FAUCET_STEPS, FAUCET_EPOCH = 120, 40
+
+
+@pytest.fixture(scope="module")
+def faucet():
+    return tb.emitter_2d(256, device="cpu")
+
+
+def run_faucet(faucet):
+    return run.run_scene(faucet, FAUCET_STEPS, epoch_steps=FAUCET_EPOCH)[0]
+
+
+def test_emission_records_one_span_an_epoch(faucet):
+    """Inside a trace, ``run_scene`` records ``sph.emit`` at each epoch's
+    start, before the epoch's steps, and ``emit_due.calls`` counts each."""
+    epochs = FAUCET_STEPS // FAUCET_EPOCH
+    before = emitter.emit_due.calls
+    with profiling.device_trace() as prof:
+        st = run_faucet(faucet)
+    assert emitter.emit_due.calls - before == epochs
+    top = top_level(spans(prof))
+    assert top.count("sph.emit") == epochs
+    starts = [i for i, name in enumerate(top) if name == "sph.emit"]
+    assert starts == [i * (1 + FAUCET_EPOCH * 4) for i in range(epochs)]
+    assert int(st.active.sum()) == 6
+
+
+def emit_due_unspanned(state, em, step_count, dt, clearance):
+    """``emitter.emit_due``'s arithmetic with no span and no counter."""
+    due = (em.spawn_step >= 0) & (em.spawn_step <= step_count) & ~state.active
+    late = (step_count - em.spawn_step).to(em.spawn_pos.dtype) * dt
+    pos = em.spawn_pos + em.spawn_vel * late[:, None]
+    due = emitter.clear(due, pos, state, clearance)
+    d2 = due[:, None]
+    return replace(
+        state,
+        pos=torch.where(d2, pos, state.pos),
+        vel=torch.where(d2, em.spawn_vel, state.vel),
+        mass=torch.where(due, em.spawn_mass, state.mass),
+        active=state.active | due,
+    )
+
+
+def test_emission_is_the_same_bits_with_its_span(faucet, monkeypatch):
+    """With no profiler recording no ``record_function`` is made; the state
+    is the same bits as under a profiler and as with the emission before
+    its span."""
+    with profiling.device_trace():
+        traced = run_faucet(faucet)
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler recording")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        plain = run_faucet(faucet)
+    monkeypatch.setattr(emitter, "emit_due", emit_due_unspanned)
+    before = run_faucet(faucet)
+    for k, v in vars(plain).items():
+        assert torch.equal(v, getattr(traced, k)), k
+        assert torch.equal(v, getattr(before, k)), k
