@@ -641,8 +641,9 @@ def phase_a_integrate() -> None:
     PBF's prediction) against its plain version, the torch composition, on
     the 1M dam break after 5 WCSPH steps (its own forces), then with
     seeded N(0, 30) m/s velocities on every slot (the speed clamp and the
-    walls' damping at work); bit for bit. Times the kernel against the
-    plain version and its least time (bytes)."""
+    walls' damping at work), then with E3's sphere (the obstacle term in
+    the kernel); bit for bit. Times the kernel against the plain version
+    and its least time (bytes: the obstacle term adds none)."""
     from sph_pie_torch.kernels import eos
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.forces import forces
@@ -668,14 +669,16 @@ def phase_a_integrate() -> None:
         "update": bound(S * (1 + 3 * dim * es) + moving * 3 * dim * es, 0),
         "predict": bound(S * (1 + 2 * dim * es) + moving * dim * es, 0),
     }
-    for label, st in (("after 5 steps", b), ("N(0, 30) velocities", replace(b, vel=fast))):
+    for label, st, obs in (("after 5 steps", b, None),
+                           ("N(0, 30) velocities", replace(b, vel=fast), None),
+                           ("E3's sphere", b, e3_sphere(float(p.dt)))):
         for mode in ("update", "predict"):
             if mode == "update":
                 fields = ("pos", "vel", "travel")
-                args = (p, g, st, walls, acc, xsph)
+                args = (p, g, st, walls, acc, xsph, obs)
             else:
                 fields = ("x_star", "travel")
-                args = (p, g, st, walls)
+                args = (p, g, st, walls, obs)
             kernel = getattr(integrate, mode)
             plain = getattr(integrate, f"{mode}_plain")
             got, want = kernel(*args), plain(*args)
@@ -1952,6 +1955,16 @@ def phase_e2() -> None:
     print(f" launches in E2: {read_launches()}")
 
 
+def e3_sphere(dt: float):
+    """E3's stirring sphere: radius 0.05 in the column, swinging 0.05 m
+    along x with a period of 40 steps."""
+    from sph_pie_torch.scenes import obstacles
+
+    return obstacles.make(3, spheres=[([0.15, 0.2, 0.3], 0.05)],
+                          sphere_motions=[([0.0, 0.0, 0.0], [0.05, 0.0, 0.0], 1.0 / (40 * dt), 0.0)],
+                          device="cuda")
+
+
 def phase_e3(b_ms: float) -> None:
     from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.scenes import dam_break_3d, emitter, obstacles
@@ -1962,10 +1975,7 @@ def phase_e3(b_ms: float) -> None:
     s = dam_break_3d(1_000_000, device="cuda")
     p, g = s.params, s.bgrid
     dt = float(p.dt)
-    # radius 0.05 in the column, swinging 0.05 m along x with a period of 40 steps
-    obs = obstacles.make(3, spheres=[([0.15, 0.2, 0.3], 0.05)],
-                         sphere_motions=[([0.0, 0.0, 0.0], [0.05, 0.0, 0.0], 1.0 / (40 * dt), 0.0)],
-                         device="cuda")
+    obs = e3_sphere(dt)
     em = emitter.no_emitter(s.state.capacity, 3, device="cuda")
     steps = E3_EPOCHS * E3_EPOCH_STEPS
     torch.cuda.synchronize()

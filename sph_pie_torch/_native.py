@@ -63,11 +63,12 @@ _SIGNATURES = {
         f"sph_pbf_walk_{t}": [_I] + [_P] * 8 + [_L, _I, _I, _L, _L, _L, _L, _I, _I, _P]
         for t in ("f32", "f64")
     },
-    # integrate: mode, pos, vel, acc, xsph, extra, valid, owner, dt, xsph_eps,
-    # max_speed, h, stiffness, damping, gravity, bmin, bmax, pos out, vel out,
-    # travel, travel out, scratch, S, dim, wall axes, frozen from
+    # integrate: mode, pos, vel, acc, xsph, obstacle pointers, spheres, boxes,
+    # valid, owner, dt, xsph_eps, max_speed, h, stiffness, damping, gravity,
+    # bmin, bmax, pos out, vel out, travel, travel out, scratch, S, dim, wall
+    # axes, frozen from
     **{
-        f"sph_integrate_{t}": [_I] + [_P] * 21 + [_L, _I, _I, _L, _P]
+        f"sph_integrate_{t}": [_I] + [_P] * 5 + [_I, _I] + [_P] * 16 + [_L, _I, _I, _L, _P]
         for t in ("f32", "f64")
     },
     **{

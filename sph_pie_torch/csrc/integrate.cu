@@ -4,17 +4,20 @@
 // to XLA, which fuses them. The port ran them as eager torch operations,
 // each a pass over all S slots (about 40 a WCSPH step: the body forces, the
 // move mask, Euler, the speed clamp, XSPH, the max reduction of travel),
-// 1.8 ms of a 5.8 ms step of the 1M dam break (PERF.md). This kernel makes
-// them one pass, in two instantiations chosen by the call site
-// (solvers/integrate.py):
+// 1.8 ms of a 5.8 ms step of the 1M dam break (PERF.md); the obstacle
+// penalty (scenes/obstacles.accel) was ~28 more launches over every slot,
+// with [S, M, DIM] temporaries. This kernel makes them one pass, in
+// instantiations chosen by the call site (solvers/integrate.py):
 //
 //   UPDATE (wcsph_binned.step, after forces), on the slots that move:
-//     a  = ((acc + g) + wall(x, v)) [+ extra]
+//     a  = ((acc + g) + wall(x, v)) [+ obstacle(x, v, t)]
 //     v' = clamp(v + dt a),  va = v' + xsph_eps xsph,  x' = x + dt va
 //   other slots keep x and get v' = 0; travel' = travel + dt sqrt(max |va|^2).
-//   PREDICT (pbf.step): a = ((0 + g) + wall(x, v)) [+ extra],
+//   PREDICT (pbf.step): a = ((0 + g) + wall(x, v)) [+ obstacle(x, v, t)],
 //     x* = x + dt clamp(v + dt a) on the slots that move, x elsewhere;
 //   travel' = travel + sqrt(max |x* - x|^2).
+// The obstacle term is the OBS instantiations' (a scene with an Obstacles,
+// even one with no shapes); the others compile without it.
 //
 // wall(x, v) = k (lo - hi) - (c min(max_k(lo_k + hi_k) / (0.1 h), 1)) v with
 // lo = max(bmin - x, 0), hi = max(x - bmax, 0), zeroed on the axes without
@@ -22,14 +25,25 @@
 // max_speed. A slot moves when it is valid and its owner is below
 // frozen_from (frozen boundary particles; -1: none is frozen).
 //
+// obstacle(x, v, t) is obstacles.accel's: each shape moves by off(t) = lin t
+// + amp sin(w t + phase) with w = 2 pi freq, its surface at vob = lin +
+// amp (w cos(w t + phase)). A sphere of radius r pushes with pen = max(r -
+// |x - c|, 0) along (x - c) / |x - c| (|d| = sqrt(max(|d|^2, 1e-12))); a box
+// pushes a slot strictly inside it by pen = the least distance to a face,
+// out through that face (the first axis on ties). Per kind, k_o sum(pen
+// dir) - c_o sum(min(pen / ramp_dist, 1) (v - vob)); spheres, then boxes
+// added; no shape at all gives +0, as torch's zeros_like does.
+//
 // Arithmetic: the torch composition's (integrate.py update_plain,
 // predict_plain), operation by operation and in its order: each product
 // and sum rounded on its own (__fmul_rn / __fadd_rn: torch runs them as
-// separate kernels, so nothing may be contracted into an FMA), rsqrt and
-// sqrt as torch's CUDA kernels call them, clamps that pass NaN through,
-// and the sum of squares in the order of torch's reduction over a row of
-// 2 or 3: x^2 + y^2, and (x^2 + z^2) + y^2 (two lanes, the first holding
-// elements 0 and 2).
+// separate kernels, so nothing may be contracted into an FMA), rsqrt, sqrt,
+// sin and cos as torch's CUDA kernels call them, clamps and minimums that
+// pass NaN through, the sum of squares in the order of torch's reduction
+// over a row of 2 or 3: x^2 + y^2, and (x^2 + z^2) + y^2 (two lanes, the
+// first holding elements 0 and 2), and the sums over the shapes in the order
+// of its reduction over the middle axis of [S, M, DIM]: four accumulators
+// from 0, shape m into m % 4, then ((l0 + l1) + l2) + l3.
 //
 // travel: each thread keeps the largest squared norm it saw as the bits of
 // the non-negative float, which order as unsigned integers (a NaN above
@@ -42,6 +56,10 @@
 // out, and (UPDATE) vel out; vel, acc and xsph (PREDICT: vel) only of the
 // slots that move: 0.43 GB (0.13 ms at 3.35 TB/s) for UPDATE on the 10.7M
 // slots of the 1M dam break in float32, 0.28 GB (0.084 ms) for PREDICT.
+// The obstacle term adds no bytes a slot: it reads the x and v the update
+// loads, and a few dozen shape constants every thread reads alike (cached);
+// its sines and cosines, a few dozen flops a shape, run only on the slots
+// that move.
 // The design: a grid-stride loop, one slot a thread per pass, as many
 // blocks as fill the card, scalar loads (a warp's 32 slots are contiguous,
 // so its loads of one field cover whole lines), the gathers of the moving
@@ -92,13 +110,153 @@ template <typename T, int DIM> __device__ __forceinline__ T sumsq(const T (&v)[D
   return add(add(mul(v[0], v[0]), mul(v[2], v[2])), mul(v[1], v[1]));
 }
 
+// torch.sin and torch.cos of CUDA tensors call these.
+__device__ __forceinline__ float sin_t(float x) { return sinf(x); }
+__device__ __forceinline__ float cos_t(float x) { return cosf(x); }
+__device__ __forceinline__ double sin_t(double x) { return sin(x); }
+__device__ __forceinline__ double cos_t(double x) { return cos(x); }
+
+// torch.minimum: NaN where either is NaN.
+__device__ __forceinline__ float minimum(float a, float b) {
+  return isnan(a) || isnan(b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ double minimum(double a, double b) {
+  return isnan(a) || isnan(b) ? __longlong_as_double(0x7ff8000000000000ll) : fmin(a, b);
+}
+
+// The obstacles (scenes/obstacles.Obstacles), OBS only: shapes of a kind
+// one after another, [DIM] vectors row by row; the clock t is sim_time.
+template <typename T>
+struct Shapes {
+  const T* sphere_center;  // [ms, DIM]
+  const T* sphere_radius;  // [ms]
+  const T* box_lo;         // [mb, DIM]
+  const T* box_hi;         // [mb, DIM]
+  const T* sphere_lin;     // [ms, DIM]
+  const T* sphere_amp;     // [ms, DIM]
+  const T* sphere_freq;    // [ms]
+  const T* sphere_phase;   // [ms]
+  const T* box_lin;        // [mb, DIM]
+  const T* box_amp;        // [mb, DIM]
+  const T* box_freq;       // [mb]
+  const T* box_phase;      // [mb]
+  const T* stiffness;
+  const T* damping;
+  const T* ramp_dist;
+  const T* t;
+  int ms;
+  int mb;
+};
+
+// A shape's translation and surface velocity at time t (obstacles._offsets).
+template <typename T, int DIM>
+__device__ __forceinline__ void offsets(const T* lin, const T* amp, T freq, T phase, T t,
+                                        T (&off)[DIM], T (&vob)[DIM]) {
+  const T w = mul(T(6.283185307179586), freq);
+  const T ang = add(mul(w, t), phase);
+  const T s = sin_t(ang), c = mul(w, cos_t(ang));
+#pragma unroll
+  for (int e = 0; e < DIM; ++e) {
+    off[e] = add(mul(lin[e], t), mul(amp[e], s));
+    vob[e] = add(lin[e], mul(amp[e], c));
+  }
+}
+
+// The two sums over one kind's shapes (spring: pen dir; damper: ramp (v -
+// vob)), in the order of torch's reduction over the shapes' axis; kind 0
+// spheres, 1 boxes.
+template <typename T, int DIM, int KIND>
+__device__ __forceinline__ void shape_sums(const Shapes<T>& o, const T (&x)[DIM],
+                                           const T (&v)[DIM], T t, T rd, T (&s1)[DIM],
+                                           T (&s2)[DIM]) {
+  const int n = KIND == 0 ? o.ms : o.mb;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    T l1[DIM], l2[DIM];
+#pragma unroll
+    for (int e = 0; e < DIM; ++e) l1[e] = l2[e] = T(0);
+    for (int m = j; m < n; m += 4) {
+      T off[DIM], vob[DIM], dir[DIM], pen;
+      if (KIND == 0) {
+        offsets<T, DIM>(o.sphere_lin + m * DIM, o.sphere_amp + m * DIM, o.sphere_freq[m],
+                        o.sphere_phase[m], t, off, vob);
+        T d[DIM];
+#pragma unroll
+        for (int e = 0; e < DIM; ++e) d[e] = sub(x[e], add(o.sphere_center[m * DIM + e], off[e]));
+        const T dist = root(clamp_lo(sumsq<T, DIM>(d), T(1e-12)));
+        pen = clamp_lo(sub(o.sphere_radius[m], dist), T(0));
+#pragma unroll
+        for (int e = 0; e < DIM; ++e) dir[e] = quot(d[e], dist);
+      } else {
+        offsets<T, DIM>(o.box_lin + m * DIM, o.box_amp + m * DIM, o.box_freq[m],
+                        o.box_phase[m], t, off, vob);
+        // inside, and the face of least distance (argmin: a NaN first,
+        // then the first axis on ties) with its side
+        bool inside = true, low = false;
+        int ax = 0;
+        T best = T(0);
+#pragma unroll
+        for (int e = 0; e < DIM; ++e) {
+          const T lo = add(o.box_lo[m * DIM + e], off[e]);
+          const T hi = add(o.box_hi[m * DIM + e], off[e]);
+          inside = inside && x[e] > lo && x[e] < hi;
+          const T d_lo = sub(x[e], lo), d_hi = sub(hi, x[e]);
+          const T f = minimum(d_lo, d_hi);
+          if (e == 0 || (isnan(f) ? !isnan(best) : f < best)) {
+            ax = e;
+            best = f;
+            low = d_lo <= d_hi;
+          }
+        }
+        const T sign = low ? T(-1) : T(1);
+        pen = inside ? best : T(0);
+#pragma unroll
+        for (int e = 0; e < DIM; ++e) dir[e] = mul(sign, e == ax ? T(1) : T(0));
+      }
+      const T ramp = clamp_hi(quot(pen, rd), T(1));
+#pragma unroll
+      for (int e = 0; e < DIM; ++e) {
+        l1[e] = add(l1[e], mul(pen, dir[e]));
+        l2[e] = add(l2[e], mul(ramp, sub(v[e], vob[e])));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < DIM; ++e) {
+      s1[e] = j == 0 ? l1[e] : add(s1[e], l1[e]);
+      s2[e] = j == 0 ? l2[e] : add(s2[e], l2[e]);
+    }
+  }
+}
+
+// obstacles.accel(x, v, t) of one slot.
+template <typename T, int DIM>
+__device__ __forceinline__ void obstacle(const Shapes<T>& o, const T (&x)[DIM],
+                                         const T (&v)[DIM], T (&out)[DIM]) {
+  const T t = o.t[0], k = o.stiffness[0], c = o.damping[0], rd = o.ramp_dist[0];
+  T s1[DIM], s2[DIM];
+#pragma unroll
+  for (int e = 0; e < DIM; ++e) out[e] = T(0);
+  if (o.ms > 0) {
+    shape_sums<T, DIM, 0>(o, x, v, t, rd, s1, s2);
+#pragma unroll
+    for (int e = 0; e < DIM; ++e) out[e] = sub(mul(k, s1[e]), mul(c, s2[e]));
+  }
+  if (o.mb > 0) {
+    shape_sums<T, DIM, 1>(o, x, v, t, rd, s1, s2);
+#pragma unroll
+    for (int e = 0; e < DIM; ++e) {
+      const T spring = mul(k, s1[e]);
+      out[e] = sub(o.ms > 0 ? add(out[e], spring) : spring, mul(c, s2[e]));
+    }
+  }
+}
+
 template <typename T>
 struct Args {
   const T* pos;
   const T* vel;
   const T* acc;    // UPDATE: the pair acceleration; PREDICT: unused
   const T* xsph;   // UPDATE: the XSPH sum; PREDICT: unused
-  const T* extra;  // an acceleration added last, or null
   const bool* valid;
   const int* owner;
   const T* dt;
@@ -119,9 +277,10 @@ struct Args {
   long long frozen_from;
   int walls;  // bit k: spatial axis k has walls
   bool mask;  // some axis has none: torch's multiply by the axis mask
+  Shapes<T> ob;  // OBS only
 };
 
-template <typename T, int DIM, int MODE>
+template <typename T, int DIM, int MODE, bool OBS>
 __global__ void __launch_bounds__(sph::kThreads) integrate_slots(const Args<T> a) {
   const T dt = a.dt[0], ms = a.max_speed[0], k = a.stiffness[0], c = a.damping[0];
   const T xe = MODE == kUpdate ? a.xsph_eps[0] : T(0);
@@ -175,11 +334,13 @@ __global__ void __launch_bounds__(sph::kThreads) integrate_slots(const Args<T> a
       pen = (isnan(pen) || pen >= p) ? pen : p;
     }
     const T damp = mul(c, clamp_hi(quot(pen, ramp_len), T(1)));
+    [[maybe_unused]] T ob[DIM];
+    if constexpr (OBS) obstacle<T, DIM>(a.ob, x, v, ob);
 #pragma unroll
     for (int e = 0; e < DIM; ++e) {
       const T pair = MODE == kUpdate ? a.acc[i * DIM + e] : T(0);
       T acc = add(add(pair, g[e]), sub(mul(k, sub(lo[e], hi[e])), mul(damp, v[e])));
-      if (a.extra != nullptr) acc = add(acc, a.extra[i * DIM + e]);
+      if constexpr (OBS) acc = add(acc, ob[e]);
       v[e] = add(v[e], mul(dt, acc));
     }
     const T s2 = sumsq<T, DIM>(v);
@@ -220,9 +381,9 @@ __global__ void __launch_bounds__(sph::kThreads) integrate_slots(const Args<T> a
   a.travel_out[0] = add(a.travel[0], MODE == kUpdate ? mul(dt, norm) : norm);
 }
 
-template <typename T, int DIM, int MODE>
+template <typename T, int DIM, int MODE, bool OBS>
 cudaError_t run(const Args<T>& a, cudaStream_t st) {
-  const auto kernel = integrate_slots<T, DIM, MODE>;
+  const auto kernel = integrate_slots<T, DIM, MODE, OBS>;
   static int per_sm = [kernel] {
     int n = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, sph::kThreads, 0);
@@ -238,61 +399,78 @@ cudaError_t run(const Args<T>& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename T, int DIM, int MODE>
+cudaError_t dispatch(const Args<T>& a, bool obs, cudaStream_t st) {
+  return obs ? run<T, DIM, MODE, true>(a, st) : run<T, DIM, MODE, false>(a, st);
+}
+
 template <typename T>
 int launch(int mode, const void* pos, const void* vel, const void* acc, const void* xsph,
-           const void* extra, const void* valid, const void* owner, const void* dt,
-           const void* xsph_eps, const void* max_speed, const void* h, const void* stiffness,
-           const void* damping, const void* gravity, const void* bmin, const void* bmax,
-           void* pos_out, void* vel_out, const void* travel, void* travel_out, void* scratch,
-           long long S, int dim, int walls, long long frozen_from, void* stream) {
+           const void* const* obs, int ms, int mb, const void* valid, const void* owner,
+           const void* dt, const void* xsph_eps, const void* max_speed, const void* h,
+           const void* stiffness, const void* damping, const void* gravity, const void* bmin,
+           const void* bmax, void* pos_out, void* vel_out, const void* travel,
+           void* travel_out, void* scratch, long long S, int dim, int walls,
+           long long frozen_from, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if ((dim != 2 && dim != 3) || S <= 0) return cudaErrorInvalidValue;
   if (mode == kUpdate && (acc == nullptr || xsph == nullptr || vel_out == nullptr))
     return cudaErrorInvalidValue;
   if (mode != kUpdate && mode != kPredict) return cudaErrorInvalidValue;
+  if (obs != nullptr && (ms < 0 || mb < 0)) return cudaErrorInvalidValue;
   const auto P = [](const void* p) { return static_cast<const T*>(p); };
+  Shapes<T> ob{};
+  if (obs != nullptr) {
+    ob = {P(obs[0]), P(obs[1]), P(obs[2]), P(obs[3]), P(obs[4]), P(obs[5]), P(obs[6]),
+          P(obs[7]), P(obs[8]), P(obs[9]), P(obs[10]), P(obs[11]), P(obs[12]), P(obs[13]),
+          P(obs[14]), P(obs[15]), ms, mb};
+  }
   const Args<T> a{
-      P(pos), P(vel), P(acc), P(xsph), P(extra),
+      P(pos), P(vel), P(acc), P(xsph),
       static_cast<const bool*>(valid), static_cast<const int*>(owner),
       P(dt), P(xsph_eps), P(max_speed), P(h), P(stiffness), P(damping),
       P(gravity), P(bmin), P(bmax),
       static_cast<T*>(pos_out), static_cast<T*>(vel_out), P(travel), static_cast<T*>(travel_out),
       static_cast<unsigned long long*>(scratch), S, frozen_from, walls,
-      walls != (1 << dim) - 1};
+      walls != (1 << dim) - 1, ob};
+  const bool o = obs != nullptr;
   if (dim == 2)
-    return mode == kUpdate ? run<T, 2, kUpdate>(a, st) : run<T, 2, kPredict>(a, st);
-  return mode == kUpdate ? run<T, 3, kUpdate>(a, st) : run<T, 3, kPredict>(a, st);
+    return mode == kUpdate ? dispatch<T, 2, kUpdate>(a, o, st)
+                           : dispatch<T, 2, kPredict>(a, o, st);
+  return mode == kUpdate ? dispatch<T, 3, kUpdate>(a, o, st) : dispatch<T, 3, kPredict>(a, o, st);
 }
 
 }  // namespace
 
 // mode 0: the WCSPH update (pos, vel out); 1: PBF's prediction (pos_out is
-// x*; acc, xsph and vel_out unused). extra may be null. scratch: two
-// zeroed 64-bit words. walls: bit k set where spatial axis k has walls.
+// x*; acc, xsph and vel_out unused). obs: null (no obstacle term), or the 15
+// tensors of an Obstacles in its field order and then sim_time, with ms
+// spheres and mb boxes. scratch: two zeroed 64-bit words. walls: bit k set
+// where spatial axis k has walls.
 extern "C" int sph_integrate_f32(int mode, const void* pos, const void* vel, const void* acc,
-                                 const void* xsph, const void* extra, const void* valid,
-                                 const void* owner, const void* dt, const void* xsph_eps,
-                                 const void* max_speed, const void* h, const void* stiffness,
-                                 const void* damping, const void* gravity, const void* bmin,
-                                 const void* bmax, void* pos_out, void* vel_out,
-                                 const void* travel, void* travel_out, void* scratch,
-                                 long long S, int dim, int walls, long long frozen_from,
-                                 void* stream) {
-  return launch<float>(mode, pos, vel, acc, xsph, extra, valid, owner, dt, xsph_eps, max_speed,
-                       h, stiffness, damping, gravity, bmin, bmax, pos_out, vel_out, travel,
-                       travel_out, scratch, S, dim, walls, frozen_from, stream);
+                                 const void* xsph, const void* const* obs, int ms, int mb,
+                                 const void* valid, const void* owner, const void* dt,
+                                 const void* xsph_eps, const void* max_speed, const void* h,
+                                 const void* stiffness, const void* damping,
+                                 const void* gravity, const void* bmin, const void* bmax,
+                                 void* pos_out, void* vel_out, const void* travel,
+                                 void* travel_out, void* scratch, long long S, int dim,
+                                 int walls, long long frozen_from, void* stream) {
+  return launch<float>(mode, pos, vel, acc, xsph, obs, ms, mb, valid, owner, dt, xsph_eps,
+                       max_speed, h, stiffness, damping, gravity, bmin, bmax, pos_out, vel_out,
+                       travel, travel_out, scratch, S, dim, walls, frozen_from, stream);
 }
 
 extern "C" int sph_integrate_f64(int mode, const void* pos, const void* vel, const void* acc,
-                                 const void* xsph, const void* extra, const void* valid,
-                                 const void* owner, const void* dt, const void* xsph_eps,
-                                 const void* max_speed, const void* h, const void* stiffness,
-                                 const void* damping, const void* gravity, const void* bmin,
-                                 const void* bmax, void* pos_out, void* vel_out,
-                                 const void* travel, void* travel_out, void* scratch,
-                                 long long S, int dim, int walls, long long frozen_from,
-                                 void* stream) {
-  return launch<double>(mode, pos, vel, acc, xsph, extra, valid, owner, dt, xsph_eps, max_speed,
-                        h, stiffness, damping, gravity, bmin, bmax, pos_out, vel_out, travel,
-                        travel_out, scratch, S, dim, walls, frozen_from, stream);
+                                 const void* xsph, const void* const* obs, int ms, int mb,
+                                 const void* valid, const void* owner, const void* dt,
+                                 const void* xsph_eps, const void* max_speed, const void* h,
+                                 const void* stiffness, const void* damping,
+                                 const void* gravity, const void* bmin, const void* bmax,
+                                 void* pos_out, void* vel_out, const void* travel,
+                                 void* travel_out, void* scratch, long long S, int dim,
+                                 int walls, long long frozen_from, void* stream) {
+  return launch<double>(mode, pos, vel, acc, xsph, obs, ms, mb, valid, owner, dt, xsph_eps,
+                        max_speed, h, stiffness, damping, gravity, bmin, bmax, pos_out, vel_out,
+                        travel, travel_out, scratch, S, dim, walls, frozen_from, stream);
 }

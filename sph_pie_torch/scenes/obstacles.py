@@ -4,6 +4,12 @@ Spheres (circles in 2D) and axis-aligned boxes, each set a fixed-count
 tensor (possibly zero-length). An empty set of shapes adds nothing and
 launches nothing: ``accel`` tests its length on the host.
 
+``accel`` is the plain version, torch over every row. On the card the
+binned solvers' update computes the same term inside its kernel, on the
+slots that move (``solvers/integrate``, ``csrc/integrate.cu``); ``accel``
+runs on the CPU, in the unbinned ``solvers/wcsph`` and in
+``parallel/sharding``.
+
 Motion model (per shape): center(t) = center0 + lin*t + amp*sin(2 pi f t
 + phase). Boxes translate rigidly (lo and hi share the offset). The
 penetration damper acts on velocity relative to the obstacle surface, so

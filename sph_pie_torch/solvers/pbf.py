@@ -44,7 +44,6 @@ from sph_pie_torch.neighbors import pbf_folds as pf
 from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.pbf_folds import integer_pow as _integer_pow  # noqa: F401 (tests/test_torch_pbf.py)
 from sph_pie_torch.neighbors.pbf_folds import inv_r_of as _inv_r
-from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers import integrate
 from sph_pie_torch.solvers.wcsph import clamp_speed
 from sph_pie_torch.solvers.wcsph_binned import maybe_rebin, wall_axes
@@ -237,10 +236,7 @@ def step(
     with annotate("sph.predict"):
         if periodic:
             wall_mask = nb.axis_vector(walls, torch.bool, b.pos.device)[None, :]
-        extra = None
-        if obstacles is not None:
-            extra = obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
-        x_star, travel = integrate.predict(params, grid, b, walls, extra)
+        x_star, travel = integrate.predict(params, grid, b, walls, obstacles)
 
         # "gather": vel is left as it is (light mid-step rebins drop it);
         # "ride": the vel slots carry the step-start positions through full,

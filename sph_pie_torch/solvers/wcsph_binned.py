@@ -10,7 +10,8 @@ Same physics, constants and update order as the reference's
   4. gravity, the wall penalty and the obstacle penalty
      (``scenes/obstacles.accel``) added, then symplectic Euler on the slots
      that move, the CFL clamp, XSPH and the per-step displacement bound
-     ``travel`` (``solvers/integrate.update``), and the clock.
+     ``travel`` (``solvers/integrate.update``: on the card one kernel, the
+     obstacle term included), and the clock.
 
 Each phase is a span of the profile while one records
 (``utils.profiling.annotate``): ``sph.rebin_check`` (1), ``sph.density``
@@ -29,7 +30,6 @@ from sph_pie_torch.kernels import eos
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.forces import forces
-from sph_pie_torch.scenes import obstacles as obs_lib
 from sph_pie_torch.solvers import integrate
 from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
@@ -92,9 +92,10 @@ def step(
     """One WCSPH step in binned space, with conditional amortised rebin.
 
     ``obstacles`` (``scenes.obstacles.Obstacles``) add their penalty at the
-    clock before it advances, over every slot; the move mask drops empty
-    slots. Periodic axes have no wall: their ghost planes are refreshed
-    after the rebin check, and the ghost slots move with the rest."""
+    clock before it advances, inside the update (on the card on the slots
+    that move only). Periodic axes have no wall: their ghost planes are
+    refreshed after the rebin check, and the ghost slots move with the
+    rest."""
     with annotate("sph.rebin_check"):
         b = maybe_rebin(grid, b)
         if any(grid.periodic):
@@ -108,10 +109,7 @@ def step(
         acc, xsph = forces(params, grid, b)
 
     with annotate("sph.integrate"):
-        extra = None
-        if obstacles is not None:
-            extra = obs_lib.accel(obstacles, b.pos, b.vel, b.sim_time)
-        pos, vel, travel = integrate.update(params, grid, b, wall_axes(grid), acc, xsph, extra)
+        pos, vel, travel = integrate.update(params, grid, b, wall_axes(grid), acc, xsph, obstacles)
         return replace(b, pos=pos, vel=vel, travel=travel, sim_time=b.sim_time + params.dt)
 
 
