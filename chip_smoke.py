@@ -186,10 +186,15 @@ import statistics
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
+
+# The least time of a kernel's work (bound_ms) and the count of host syncs,
+# as the benchmark reckons them.
+from h100bench import roofline
+from h100bench.roofline import DENSITY_PAIR_FLOPS, FORCES_PAIR_FLOPS, XSPH_FLOPS, bound
+from h100bench.tracing import counting_syncs
 
 # Error bounds, each with its reason.
 DENSITY_RTOL = 1e-5   # f32, summation order only (gather vs fold)
@@ -286,32 +291,6 @@ H_PASSWORD = "Str0ng-Passw0rd!"  # H1: the admin's password after the forced res
 H_SERVE_TIMEOUT = 180  # H2: seconds to the address line
 H_VERIFY_TIMEOUT = 480  # H3: seconds for verify (engine + the O(N^2) oracle on the host)
 
-# The least time of a kernel's work (bound_ms): the larger of its bytes (each
-# input read once, each output written once) over the memory rate and its
-# operations over the float32 rate outside the tensor cores. Published peaks
-# of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-# Float operations per pair in support, counted in the kernels' pair math:
-# density: r^2 (3 sub, 3 mul, 2 add), q, m (c6 q q q), the sum: 14.
-DENSITY_PAIR_FLOPS = 14
-# forces: r^2 (8), rsqrt, r, q, q^2 C_s, the pressure term (3), 1/r, the
-# viscous weight (2), per axis dv and two multiply-adds (15): 34; cohesion
-# adds 11, XSPH 11 (its weight 5, per axis a multiply-add).
-FORCES_PAIR_FLOPS, COHESION_FLOPS, XSPH_FLOPS = 34, 11, 11
-# The PBF folds (csrc/pbf.cu), per pair in support in 3D: r^2 (8); lambda:
-# rsqrt, r, q (3), poly6 and its sum (6), the gradient over r (3), its
-# coefficient (1), per axis g, g^2 and two sums (12): 33; dx: rsqrt, r, q
-# (3), poly6 (4), the ratio and its 4th power by squaring (3), s_corr and
-# the lambda sum (3), the gradient (3), its coefficient (2), per axis a
-# multiply-add (6): 32; density+XSPH: poly6 (4), rho's and S0's terms (4),
-# per axis a multiply-add (6): 22; vorticity: rsqrt, r, q (3), the gradient
-# (3), its coefficient (1), per axis dv and g (6), the cross product's three
-# components (12): 33; vorticity's eta: rsqrt, r, q (3), the gradient (3),
-# its coefficient (1), per axis a multiply-add (6): 21.
-PBF_PAIR_FLOPS = {"lambda": 33, "dx": 32, "density_xsph": 22, "vorticity": 33,
-                  "vorticity_eta": 21}
-
 KERNELS = {
     "density": (
         "sph_pie_torch/csrc/density.cu",
@@ -400,20 +379,6 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-@contextlib.contextmanager
-def counting_syncs(counts: list[int]):
-    """Count implicit device-to-host syncs (torch's sync debug mode warns
-    at each one) inside the block; appends the count to ``counts``."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    counts.append(sum("synchroniz" in str(w.message) for w in caught))
-
-
 def differing_fields(card, cpu) -> list[str]:
     """Names of the fields where a card state and a CPU state differ."""
     return [k for k in vars(cpu) if not torch.equal(getattr(card, k).cpu(), getattr(cpu, k))]
@@ -422,12 +387,6 @@ def differing_fields(card, cpu) -> list[str]:
 def scaled(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| / max |want| (scale-normalised absolute error)."""
     return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(least ms for the work, what bounds it: "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def pairs_in_support(grid, b, h2) -> int:
@@ -1503,17 +1462,12 @@ def phase_b() -> tuple[list[dict], tuple]:
     }
     p, S, dim, es = s.params, g.num_slots, g.dim, b.pos.element_size()
     pairs = pairs_in_support(g, b, p.h * p.h)
-    pair_flops = FORCES_PAIR_FLOPS + COHESION_FLOPS * p.use_cohesion + XSPH_FLOPS * p.use_xsph
     ncol, K = srt.rows.shape[1], srt.rows.shape[0]
     occupied = int((b.mass != 0).sum())
     least = {
-        # what any implementation must touch: mass in and rho out for every
-        # slot, pos only of the occupied slots (valid follows from mass)
-        "density": bound(S * 2 * es + occupied * dim * es, pairs * DENSITY_PAIR_FLOPS),
-        # mass in, acc and xsph out for every slot; pos, vel, density and
-        # pressure only of the occupied slots
-        "forces": bound(S * (es + 2 * dim * es) + occupied * (2 * dim + 2) * es,
-                        pairs * pair_flops),
+        "density": roofline.density_bound(S, occupied, dim, es, pairs),
+        "forces": roofline.forces_bound(S, occupied, dim, es, pairs, p.use_cohesion,
+                                        p.use_xsph),
         # first, count, rows, owner in; dense rows, owner out
         "expand": bound(g.num_cells * 8 + K * (ncol * es + 4) + S * (ncol * es + 4), 0),
     }
@@ -1544,19 +1498,10 @@ def pbf_roll(params, grid, pp, b, steps: int, checksum):
 
 
 def pbf_bounds(grid, b, pairs: int) -> dict:
-    """{op: (least ms, bound_by)} of the five PBF folds on state ``b``: what
-    any implementation must touch is the mass of every slot in (an empty
-    slot is known by it) and every slot's outputs out, and pos and the op's
-    other inputs only of the occupied slots; its operations are the pairs
-    in support times ``PBF_PAIR_FLOPS``."""
-    S, dim, es = grid.num_slots, grid.dim, b.pos.element_size()
-    occ = int((b.mass != 0).sum())
-    nv = 3 if dim == 3 else 1
-    # (inputs of an occupied slot beside mass, outputs of a slot), in values
-    width = {"lambda": (dim, 2), "dx": (dim + 1, dim), "density_xsph": (2 * dim + 1, 1 + dim),
-             "vorticity": (2 * dim + 1, nv), "vorticity_eta": (dim + 1, dim)}
-    return {op: bound((S * (1 + w_out) + occ * w_in) * es, pairs * PBF_PAIR_FLOPS[op])
-            for op, (w_in, w_out) in width.items()}
+    """{op: (least ms, bound_by)} of the five PBF folds on state ``b``
+    (``roofline.pbf_bounds``; an occupied slot is one with mass)."""
+    occupied = int((b.mass != 0).sum())
+    return roofline.pbf_bounds(grid.num_slots, occupied, grid.dim, b.pos.element_size(), pairs)
 
 
 def phase_d1() -> dict:
@@ -2355,29 +2300,28 @@ def shard_kernels_vs_plain(mesh, params, grid, st) -> None:
     halos), after fresh exchanges, at Phase A's bounds."""
     from sph_pie_torch.kernels import eos
     from sph_pie_torch.neighbors.density import density, density_plain
-    from sph_pie_torch.neighbors.forces import forces, forces_plain
+    from sph_pie_torch.neighbors.forces import forces, forces_plain, per_slot
     from sph_pie_torch.parallel import comm, sharding
 
     live = [s for s in st.shards if s.cells]
     comm.exchange(mesh, st.shards, ("pos", "vel", "mass"))
     worst = [0.0, 0.0, 0.0]
     for s in live:
-        v = sharding.view(s)
+        v = sharding.view(s, st)
         rk, rp = density(params, grid, v, home=s.home), density_plain(params, grid, v, home=s.home)
         ok = v.valid
         rel = ((rk - rp).abs()[ok] / rp[ok]).max().item() if bool(ok.any()) else 0.0
         check(rel <= DENSITY_RTOL and torch.equal(rk[~ok], rp[~ok]),
               f"shard {s.index}: density kernel disagrees ({rel:.3e})")
         worst[0] = max(worst[0], rel)
-        inv_rho = 1.0 / rk
-        s.field("inv_rho").copy_(inv_rho)
-        s.field("pr2").copy_(eos.tait_pressure(params, rk) * inv_rho * inv_rho)
-        s.field("m_rho").copy_(s.field("mass") * inv_rho)
-    comm.exchange(mesh, st.shards, ("pr2", "m_rho", "inv_rho"))
+        fields = per_slot(rk, eos.tait_pressure(params, rk), s.field("mass"))
+        for k, x in zip(sharding.PER_SLOT, fields):
+            s.field(k).copy_(x)
+    comm.exchange(mesh, st.shards, sharding.PER_SLOT)
     for s in live:
-        v, per = sharding.view(s), (s.buf["inv_rho"], s.buf["pr2"], s.buf["m_rho"])
-        ak, xk = forces(params, grid, v, home=s.home, per_slot=per)
-        ap, xp = forces_plain(params, grid, v, home=s.home, per_slot=per)
+        v, per = sharding.view(s, st), tuple(s.buf[k] for k in sharding.PER_SLOT)
+        ak, xk = forces(params, grid, v, home=s.home, hoisted=per)
+        ap, xp = forces_plain(params, grid, v, home=s.home, hoisted=per)
         ea, ex = scaled(ak, ap), scaled(xk, xp)
         check(ea <= FORCES_ATOL and ex <= FORCES_ATOL,
               f"shard {s.index}: forces kernel disagrees ({ea:.3e}, {ex:.3e})")
@@ -2408,10 +2352,10 @@ def g_ablate(mesh, params, grid, st) -> None:
     real_exchange, real_kernels = comm.exchange, (sharding.density, sharding.forces)
     cache = {}
     for s in st.shards:
-        v = sharding.view(s)
-        per = (s.buf["inv_rho"], s.buf["pr2"], s.buf["m_rho"])
+        v = sharding.view(s, st)
+        per = tuple(s.buf[k] for k in sharding.PER_SLOT)
         cache[("d", s.index)] = real_kernels[0](params, grid, v, home=s.home)
-        cache[("f", s.index)] = real_kernels[1](params, grid, v, home=s.home, per_slot=per)
+        cache[("f", s.index)] = real_kernels[1](params, grid, v, home=s.home, hoisted=per)
     index = {s.buf["pos"].data_ptr(): s.index for s in st.shards}
 
     def no_exchange():
@@ -2419,7 +2363,7 @@ def g_ablate(mesh, params, grid, st) -> None:
 
     def no_kernels():
         sharding.density = lambda p, g, v, home: cache[("d", index[v.pos.data_ptr()])]
-        sharding.forces = lambda p, g, v, home, per_slot: cache[("f", index[v.pos.data_ptr()])]
+        sharding.forces = lambda p, g, v, home, hoisted: cache[("f", index[v.pos.data_ptr()])]
 
     times = {"full": [], "no exchange": [], "no kernels": []}
     for _ in range(G_ABLATE_ROUNDS):
@@ -2451,7 +2395,7 @@ def phase_g1(b_ms: float) -> None:
     from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.parallel import balance, comm, halo, sharding
     from sph_pie_torch.scenes import dam_break_3d
-    from sph_pie_torch.solvers import wcsph_binned
+    from sph_pie_torch.solvers import integrate, wcsph_binned
 
     s = dam_break_3d(G_N, device="cuda")
     g, n = s.bgrid, int(s.state.n_active())
@@ -2473,6 +2417,7 @@ def phase_g1(b_ms: float) -> None:
         torch.cuda.reset_peak_memory_stats()
         syncs: list[int] = []
         reset_launches()
+        updates = integrate.update.launches
         # ---- the parallel path: counts start at 0 here ----
         st = sharding.shard_binned(mesh, g, s.binned_state())
         for _ in range(G_WARM):
@@ -2488,21 +2433,22 @@ def phase_g1(b_ms: float) -> None:
             st = step(st)
         torch.cuda.synchronize()
         launches = read_launches()
+        launches["update"] = integrate.update.launches - updates
         # ---- counts read here ----
         peak = torch.cuda.max_memory_allocated()
         rebins = int(st.n_rebins)
         ex_ms = sum(cuda_ms(lambda k=k: comm.exchange(mesh, st.shards, k), 10)
-                    for k in (("pos", "vel", "mass"), ("pr2", "m_rho", "inv_rho")))
+                    for k in (("pos", "vel", "mass"), sharding.PER_SLOT))
         gline(f" G1 {name}: ms/step {ms:.3f} over {G_STEPS} steps after {G_WARM} (Phase B "
               f"{b_ms:.3f} in this run), then {G_MORE} more; exchanges {ex_ms:.3f} ms a step "
               f"(CUDA events, both); rebins {rebins} in {run} steps, overflow "
               f"{int(st.overflow)}; host syncs {sum(syncs) / G_STEPS:.3f}/step (timed steps)")
-        gline(f"  launches over {run} steps: {launches} (density == forces == {G_SHARDS} x "
+        gline(f"  launches over {run} steps: {launches} (density == forces == update == {G_SHARDS} x "
               f"{run}, expand == 1 + {rebins} rebins); peak device memory "
               f"{peak / 2**30:.3f} GiB, hbm_budget_bytes per device "
               f"{budget['per_device_gb']:.3f} GB ({budget['bytes_per_slot']} B a slot)")
-        check(launches["density"] == G_SHARDS * run and launches["forces"] == G_SHARDS * run,
-              f"G1 {name}: density/forces launches {launches} != {G_SHARDS} x {run}")
+        check(launches["density"] == launches["forces"] == launches["update"] == G_SHARDS * run,
+              f"G1 {name}: density/forces/update launches {launches} != {G_SHARDS} x {run}")
         check(launches["expand"] == 1 + rebins and rebins >= 1,
               f"G1 {name}: expand launches {launches}, rebins {rebins}")
         out = sharding.gather_binned(mesh, g, st)
@@ -2539,7 +2485,7 @@ def phase_g2() -> None:
     from sph_pie_torch.neighbors import binned as nb
     from sph_pie_torch.parallel import balance, comm
     from sph_pie_torch.scenes import dam_break_3d
-    from sph_pie_torch.solvers import wcsph_binned
+    from sph_pie_torch.solvers import integrate, wcsph_binned
 
     s = dam_break_3d(G_N, device="cuda")
     g = s.bgrid
@@ -2558,6 +2504,7 @@ def phase_g2() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    updates = integrate.update.launches
     # ---- the balanced path: counts start at 0 here ----
     bs = init_fn(b0, starts)
     t0 = time.perf_counter()
@@ -2566,6 +2513,7 @@ def phase_g2() -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / G_BAL_STEPS
     launches = read_launches()
+    launches["update"] = integrate.update.launches - updates
     # ---- counts read here ----
     live = int((widths > 0).sum())
     out = finish_fn(bs, b0)
@@ -2575,10 +2523,10 @@ def phase_g2() -> None:
     rel = ((out.density - ref.density).abs()[v] / ref.density[v]).max().item()
     err = (out.pos - ref.pos)[v].abs().max().item()
     gline(f" G2: {ms:.3f} ms/step over {G_BAL_STEPS} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
-          f"GiB; launches {launches} (density == forces == {live} shards x {G_BAL_STEPS}); "
+          f"GiB; launches {launches} (density == forces == update == {live} shards x {G_BAL_STEPS}); "
           f"against the single card: density max rel {rel:.3e} (bound {G_DENSITY_RTOL:g}), "
           f"max |dpos| {err:.3e} (bound {G_TRAJ_ATOL:g})")
-    check(launches["density"] == live * G_BAL_STEPS == launches["forces"],
+    check(launches["density"] == live * G_BAL_STEPS == launches["forces"] == launches["update"],
           f"G2: launches {launches}")
     check(rel <= G_DENSITY_RTOL and err <= G_TRAJ_ATOL, "G2: balanced step differs from one card")
 

@@ -187,6 +187,17 @@ def launch(kernel: str, dtype: torch.dtype, *args) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
 
 
+def on_card(fn_name: str, x: torch.Tensor) -> bool:
+    """Where ``fn_name`` runs for tensors like ``x``: False on the CPU (its
+    plain version), True on a CUDA device (its kernel); any other device
+    raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn_name}: no kernel for device {x.device}")
+    return True
+
+
 def check_cuda(kernel: str, dtype: torch.dtype, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is contiguous, on ``device``, and of
     ``dtype`` (float arguments) or its declared integer/bool type."""

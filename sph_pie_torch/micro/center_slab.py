@@ -137,10 +137,8 @@ def _launch(name: str, grid: nb.BinnedGrid, inputs, K: int) -> torch.Tensor:
 
 def center_slab_dense(grid: nb.BinnedGrid, inputs) -> torch.Tensor:
     """``center_slab_dense_plain`` on the CPU; the dense kernel on the card."""
-    if inputs[0].device.type == "cpu":
+    if not _native.on_card("center_slab_dense", inputs[0]):
         return center_slab_dense_plain(grid, inputs)
-    if inputs[0].device.type != "cuda":
-        raise ValueError(f"center_slab_dense: no kernel for device {inputs[0].device}")
     _check("center_slab_dense", grid, inputs, None)
     out = _launch("center_slab_dense", grid, inputs, 0)
     center_slab_dense.launches += 1
@@ -149,10 +147,8 @@ def center_slab_dense(grid: nb.BinnedGrid, inputs) -> torch.Tensor:
 
 def center_slab_compact(grid: nb.BinnedGrid, inputs, K: int = 32) -> torch.Tensor:
     """``center_slab_compact_plain`` on the CPU; the compact kernel on the card."""
-    if inputs[0].device.type == "cpu":
+    if not _native.on_card("center_slab_compact", inputs[0]):
         return center_slab_compact_plain(grid, inputs, K)
-    if inputs[0].device.type != "cuda":
-        raise ValueError(f"center_slab_compact: no kernel for device {inputs[0].device}")
     _check("center_slab_compact", grid, inputs, K)
     out = _launch("center_slab_compact", grid, inputs, int(K))
     center_slab_compact.launches += 1

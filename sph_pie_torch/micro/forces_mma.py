@@ -48,7 +48,7 @@ from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.kernels import smoothing
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors import runs
-from sph_pie_torch.neighbors.forces import _per_slot
+from sph_pie_torch.neighbors.forces import per_slot
 
 _TINY = 1e-12
 
@@ -95,7 +95,7 @@ def forces_mma_plain(
     dim = grid.dim
     h, h2, cs, cv, c6 = b.pos.new_tensor(_consts(grid))
     mu = params.viscosity.to(b.pos)
-    inv_rho, pr2, m_rho = _per_slot(b)
+    inv_rho, pr2, m_rho = per_slot(b.density, b.pressure, b.mass)
     ones = 2 * dim
 
     def pair(carry, hm, w):
@@ -152,14 +152,12 @@ def forces_mma(
     """``forces_mma_plain`` on the CPU; the tensor-core kernel on the card.
 
     Launches are counted per arm: ``forces_mma.launches["f32" | "bf16"]``."""
-    if b.pos.device.type == "cpu":
+    if not _native.on_card("forces_mma", b.pos):
         return forces_mma_plain(params, grid, b, bf16)
-    if b.pos.device.type != "cuda":
-        raise ValueError(f"forces_mma: no kernel for device {b.pos.device}")
     _check(params, grid, b)
     dt, dev, dim = b.pos.dtype, b.pos.device, grid.dim
     S = grid.num_slots
-    inv_rho, pr2, m_rho = _per_slot(b)
+    inv_rho, pr2, m_rho = per_slot(b.density, b.pressure, b.mass)
     # the one constant that lives on the device; the others go by value
     mu = params.viscosity.reshape(1).to(b.pos)
     _native.check_cuda(

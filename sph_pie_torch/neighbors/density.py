@@ -72,10 +72,8 @@ def density(
 ) -> torch.Tensor:
     """``density_plain`` on the CPU; the ``density`` CUDA kernel on the card,
     which raises on a cap it cannot stage (``runs.check_staging``)."""
-    if b.pos.device.type == "cpu":
+    if not _native.on_card("density", b.pos):
         return density_plain(params, grid, b, home)
-    if b.pos.device.type != "cuda":
-        raise ValueError(f"density: no kernel for device {b.pos.device}")
     dt, dev = b.pos.dtype, b.pos.device
     S = b.pos.shape[0]
     first, count = nb.home_range(grid, S, home)

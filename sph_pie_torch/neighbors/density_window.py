@@ -109,10 +109,8 @@ def density_cap32(
     params: FluidParams, grid: nb.BinnedGrid, b: nb.BinnedState
 ) -> torch.Tensor:
     """``density_cap32_plain`` on the CPU; ``density.cu``, masked, on the card."""
-    if b.pos.device.type == "cpu":
+    if not _native.on_card("density_cap32", b.pos):
         return density_cap32_plain(params, grid, b)
-    if b.pos.device.type != "cuda":
-        raise ValueError(f"density_cap32: no kernel for device {b.pos.device}")
     _check("density_cap32", grid, b, cap32=True)
     prm = _cap32_consts(params, grid, b)
     _check_cuda("density_cap32", b, prm)
@@ -132,10 +130,8 @@ def density_window(
 ) -> torch.Tensor:
     """``density_window_plain`` on the CPU; ``density.cu``, unmasked, on the
     card: over runs of cells where ``runs.stageable``, else a thread per slot."""
-    if b.pos.device.type == "cpu":
+    if not _native.on_card("density_window", b.pos):
         return density_window_plain(params, grid, b)
-    if b.pos.device.type != "cuda":
-        raise ValueError(f"density_window: no kernel for device {b.pos.device}")
     _check("density_window", grid, b, cap32=False)
     prm = _window_consts(params, b)
     _check_cuda("density_window", b, prm)

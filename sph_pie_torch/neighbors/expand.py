@@ -56,10 +56,8 @@ def expand(
 
     ``first``/``count``: [C] int32; ``rows``: [K, NCOL] float32/float64;
     ``owner``: [K] int32."""
-    if rows.device.type == "cpu":
+    if not _native.on_card("expand", rows):
         return expand_plain(first, count, rows, owner, cap)
-    if rows.device.type != "cuda":
-        raise ValueError(f"expand: no kernel for device {rows.device}")
     _native.check_cuda(
         "expand", rows.dtype, rows.device,
         first=(first, torch.int32), count=(count, torch.int32),

@@ -19,9 +19,9 @@ raises.
 
 Both take ``home=(first, count)`` as ``neighbors/density.py`` does: the
 inputs span a buffer, ``valid`` and the results its home slots. A shard
-passes ``per_slot=(inv_rho, pr2, m_rho)`` over its buffer, exchanged with
-its neighbours; without it they are computed from ``b.density`` and
-``b.pressure``.
+passes ``hoisted=(inv_rho, pr2, m_rho)`` over its buffer, ``per_slot``'s
+fields exchanged with its neighbours; without it they are ``per_slot`` of
+``b.density``, ``b.pressure`` and ``b.mass``.
 """
 
 from __future__ import annotations
@@ -35,10 +35,10 @@ from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors import runs
 
 
-def _per_slot(b: nb.BinnedState):
+def per_slot(density: torch.Tensor, pressure: torch.Tensor, mass: torch.Tensor):
     """inv_rho, p/rho^2 and m/rho: hoisted out of the pair loop."""
-    inv_rho = 1.0 / b.density
-    return inv_rho, b.pressure * inv_rho * inv_rho, b.mass * inv_rho
+    inv_rho = 1.0 / density
+    return inv_rho, pressure * inv_rho * inv_rho, mass * inv_rho
 
 
 def forces_plain(
@@ -46,12 +46,12 @@ def forces_plain(
     grid: nb.BinnedGrid,
     b: nb.BinnedState,
     home: tuple[int, int] | None = None,
-    per_slot: tuple[torch.Tensor, ...] | None = None,
+    hoisted: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """([n, dim] acc, [n, dim] xsph) of the n home slots by the one-sided
     slab fold."""
     dim, h = params.dim, params.h
-    inv_rho, pr2, m_rho = _per_slot(b) if per_slot is None else per_slot
+    inv_rho, pr2, m_rho = hoisted or per_slot(b.density, b.pressure, b.mass)
 
     def pair(carry, hm, w):
         """Mask-free pair math: empty slots carry mass == 0 and m_rho == 0,
@@ -116,20 +116,18 @@ def forces(
     grid: nb.BinnedGrid,
     b: nb.BinnedState,
     home: tuple[int, int] | None = None,
-    per_slot: tuple[torch.Tensor, ...] | None = None,
+    hoisted: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``forces_plain`` on the CPU; the ``forces`` CUDA kernel on the card,
     which raises on a cap it cannot stage (``runs.check_staging``)."""
-    if b.pos.device.type == "cpu":
-        return forces_plain(params, grid, b, home, per_slot)
-    if b.pos.device.type != "cuda":
-        raise ValueError(f"forces: no kernel for device {b.pos.device}")
+    if not _native.on_card("forces", b.pos):
+        return forces_plain(params, grid, b, home, hoisted)
     dt, dev, dim = b.pos.dtype, b.pos.device, params.dim
     S = b.pos.shape[0]
     first, count = nb.home_range(grid, S, home)
     if b.pos.shape != (S, dim) or b.vel.shape != (S, dim) or b.mass.shape != (S,):
         raise ValueError(f"forces: pos and vel must be [{S}, {dim}], mass [{S}]")
-    inv_rho, pr2, m_rho = _per_slot(b) if per_slot is None else per_slot
+    inv_rho, pr2, m_rho = hoisted or per_slot(b.density, b.pressure, b.mass)
     h = params.h
     prm = torch.stack(
         [

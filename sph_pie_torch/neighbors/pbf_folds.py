@@ -175,15 +175,6 @@ def _prm(dtype: torch.dtype, *values) -> torch.Tensor:
     return torch.stack([torch.as_tensor(v).to(dtype) for v in values])
 
 
-def _device(fn_name: str, x: torch.Tensor) -> bool:
-    """True for the plain version (CPU), False for the kernel (CUDA)."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn_name}: no kernel for device {x.device}")
-    return False
-
-
 # ---------------------------------------------------------------- lambda
 
 
@@ -230,7 +221,7 @@ def lambda_fold(params: FluidParams, pbf, grid, pos, mass, home=None):
     """(lambda, rho [n], words) of the n home slots: ``lambda_fold_plain``
     on the CPU (words [n, 0]), op ``lambda`` of ``csrc/pbf.cu``'s walk on
     the card (words [n, ``words_per_slot``], for ``dx_fold``)."""
-    if _device("lambda_fold", pos):
+    if not _native.on_card("lambda_fold", pos):
         lam, rho = lambda_fold_plain(params, pbf, grid, pos, mass, home)
         return lam, rho, torch.zeros((lam.shape[0], 0), dtype=torch.int32)
     h = params.h
@@ -283,7 +274,7 @@ def dx_fold(params: FluidParams, pbf, grid, pos, mass, lam, words=None, home=Non
     walk over ``words``, the words ``lambda_fold`` returned on this pos,
     mass and home range, rows of the buffer; its own distance tests when
     ``words`` is None."""
-    if _device("dx_fold", pos):
+    if not _native.on_card("dx_fold", pos):
         return dx_fold_plain(params, pbf, grid, pos, mass, lam, home=home)
     h = params.h
     inv_wdq, neg_k_h2 = _dx_constants(params, pbf)
@@ -330,7 +321,7 @@ def density_xsph_fold_plain(params: FluidParams, grid, pos, vel, mass, m_rho, ho
 def density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho, home=None):
     """(rho_raw, dv) of the n home slots: ``density_xsph_fold_plain`` on
     the CPU, op ``density_xsph`` of ``csrc/pbf.cu`` on the card."""
-    if _device("density_xsph_fold", pos):
+    if not _native.on_card("density_xsph_fold", pos):
         return density_xsph_fold_plain(params, grid, pos, vel, mass, m_rho, home)
     h = params.h
     prm = _prm(pos.dtype, h, smoothing.poly6_coeff(params.dim, h))
@@ -374,7 +365,7 @@ def vorticity_fold_plain(params: FluidParams, grid, pos, vel, mass, m_rho, home=
 def vorticity_fold(params: FluidParams, grid, pos, vel, mass, m_rho, home=None):
     """omega of the n home slots: ``vorticity_fold_plain`` on the CPU, op
     ``vorticity`` of ``csrc/pbf.cu`` on the card."""
-    if _device("vorticity_fold", pos):
+    if not _native.on_card("vorticity_fold", pos):
         return vorticity_fold_plain(params, grid, pos, vel, mass, m_rho, home)
     h = params.h
     prm = _prm(pos.dtype, h, smoothing.spiky_grad_coeff(params.dim, h))
@@ -404,7 +395,7 @@ def vorticity_eta_fold_plain(params: FluidParams, grid, pos, mass, m_rho_w, home
 def vorticity_eta_fold(params: FluidParams, grid, pos, mass, m_rho_w, home=None):
     """eta of the n home slots: ``vorticity_eta_fold_plain`` on the CPU,
     op ``vorticity_eta`` of ``csrc/pbf.cu`` on the card."""
-    if _device("vorticity_eta_fold", pos):
+    if not _native.on_card("vorticity_eta_fold", pos):
         return vorticity_eta_fold_plain(params, grid, pos, mass, m_rho_w, home)
     h = params.h
     prm = _prm(pos.dtype, h, smoothing.spiky_grad_coeff(params.dim, h))

@@ -17,10 +17,11 @@ partitioner would do:
      same global rebin: ``expand.cu`` on the card);
   2. an exchange of pos, vel and mass; density on each shard's home range
      (``density.cu`` on the card), then the Tait EOS;
-  3. an exchange of what the forces read of a neighbour: p/rho^2, m/rho and
-     1/rho; forces on each shard's home range (``forces.cu``);
-  4. the single-device step's update, frozen boundary particles held, and
-     ``travel`` by ``pmax``.
+  3. an exchange of what the forces read of a neighbour, ``forces.per_slot``'s
+     1/rho, p/rho^2 and m/rho; forces on each shard's home range
+     (``forces.cu``);
+  4. the single-device step's update, ``integrate.update`` on each shard's
+     home rows (``integrate.cu`` on the card), and ``travel`` by ``pmax``.
 
 The same windows in the same order give each home slot the single-device
 kernel's sums, so the step's results are the single-device step's. The
@@ -41,16 +42,17 @@ from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.kernels import eos
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors.density import density
-from sph_pie_torch.neighbors.forces import forces
+from sph_pie_torch.neighbors.forces import forces, per_slot
 from sph_pie_torch.parallel import comm
 from sph_pie_torch.parallel.comm import make_mesh  # noqa: F401 (the reference's name)
-from sph_pie_torch.scenes import obstacles as obs_lib
-from sph_pie_torch.solvers.wcsph import boundary_accel, clamp_speed
+from sph_pie_torch.solvers import integrate
 from sph_pie_torch.solvers.wcsph_binned import wall_axes
 from sph_pie_torch.utils.struct import replace
 
+# ``forces.per_slot``'s outputs, in its order.
+PER_SLOT = ("inv_rho", "pr2", "m_rho")
 # Fields in margined buffers (read across shard edges), and home-only ones.
-EXCHANGED = ("pos", "vel", "mass", "pr2", "m_rho", "inv_rho")
+EXCHANGED = ("pos", "vel", "mass", *PER_SLOT)
 HOME_ONLY = ("density", "pressure", "valid", "owner", "bin_pos")
 # Every slot field of BinnedState that a shard holds.
 SLOT_FIELDS = ("pos", "vel", "mass", "density", "pressure", "valid", "owner", "bin_pos")
@@ -72,18 +74,26 @@ class ShardedState:
 
 @dataclasses.dataclass
 class View:
-    """What the density and forces wrappers read of a buffer: pos, vel and
-    mass over its rows, valid over its home slots."""
+    """What the wrappers read of a shard. Density and forces read pos, vel
+    and mass over its buffer's rows and valid over its home slots;
+    ``integrate.update`` reads pos, vel, valid and owner over its home
+    slots, travel and sim_time."""
 
     pos: torch.Tensor
     vel: torch.Tensor
     mass: torch.Tensor
     valid: torch.Tensor
+    owner: torch.Tensor
+    travel: torch.Tensor
+    sim_time: torch.Tensor
 
 
-def view(s: comm.Shard) -> View:
-    """A shard's buffers as the wrappers read them with ``home=s.home``."""
-    return View(s.buf["pos"], s.buf["vel"], s.buf["mass"], s.field("valid"))
+def view(s: comm.Shard, st: ShardedState) -> View:
+    """A shard's buffers as density and forces read them with
+    ``home=s.home``, with its home slots' owner, a zero travel and the
+    clock."""
+    return View(s.buf["pos"], s.buf["vel"], s.buf["mass"], s.field("valid"),
+                s.field("owner"), st.travel.new_zeros(()), st.sim_time)
 
 
 def equal_splits(num_cells: int, n: int) -> np.ndarray:
@@ -191,12 +201,6 @@ def one_stage_rebin(mesh, grid, st: ShardedState) -> ShardedState:
 Trigger = Callable[[comm.Mesh, nb.BinnedGrid, ShardedState], ShardedState]
 
 
-def _frozen(grid: nb.BinnedGrid, owner: torch.Tensor) -> torch.Tensor:
-    if not grid.n_boundary:
-        return torch.zeros_like(owner, dtype=torch.bool)
-    return owner >= grid.max_particles - grid.n_boundary
-
-
 @torch.no_grad()
 def local_step(
     mesh: comm.Mesh,
@@ -208,44 +212,38 @@ def local_step(
 ) -> ShardedState:
     """One WCSPH step over the mesh: ``trigger`` (None: never rebin), the
     global ghost wrap on a periodic grid, then the shards' pair sums on
-    their home ranges between exchanges, and the update."""
+    their home ranges between exchanges, and the update of each shard's
+    home rows, whose travels' ``pmax`` grows ``travel``."""
     if trigger is not None:
         st = trigger(mesh, grid, st)
     if any(grid.periodic):
         st = _global(mesh, grid, st, lambda b: nb.wrap_ghosts(grid, b))
     live = [s for s in st.shards if s.cells]
-    views = {s.index: view(s) for s in live}
+    views = {s.index: view(s, st) for s in live}
 
     comm.exchange(mesh, st.shards, ("pos", "vel", "mass"))
     for s in live:
         rho = density(params, grid, views[s.index], home=s.home)
         s.loc["density"], s.loc["pressure"] = rho, eos.tait_pressure(params, rho)
-        inv_rho = 1.0 / rho
-        s.field("inv_rho").copy_(inv_rho)
-        s.field("pr2").copy_(s.loc["pressure"] * inv_rho * inv_rho)
-        s.field("m_rho").copy_(s.field("mass") * inv_rho)
+        for k, x in zip(PER_SLOT, per_slot(rho, s.loc["pressure"], s.field("mass"))):
+            s.field(k).copy_(x)
 
-    comm.exchange(mesh, st.shards, ("pr2", "m_rho", "inv_rho"))
+    comm.exchange(mesh, st.shards, PER_SLOT)
     walls = wall_axes(grid)
-    d2 = []
+    travels = []
     for s in live:
-        per_slot = (s.buf["inv_rho"], s.buf["pr2"], s.buf["m_rho"])
-        acc, xsph = forces(params, grid, views[s.index], home=s.home, per_slot=per_slot)
-        pos, vel = s.field("pos"), s.field("vel")
-        acc = acc + params.gravity
-        acc = acc + boundary_accel(params, pos, vel, walls)
-        if obstacles is not None:
-            acc = acc + obs_lib.accel(obstacles, pos, vel, st.sim_time)
-        move = (s.field("valid") & ~_frozen(grid, s.field("owner")))[:, None]
-        new_vel = clamp_speed(params, torch.where(move, vel + params.dt * acc, 0.0))
-        vel_adv = torch.where(move, new_vel + params.xsph_eps * xsph, 0.0)
-        pos.copy_(torch.where(move, pos + params.dt * vel_adv, pos))
-        vel.copy_(new_vel)
-        d2.append((vel_adv * vel_adv).sum(dim=-1).amax())
-    if not d2:  # a process whose shard holds no cells
-        d2 = [st.travel.new_zeros(())]
-    step_disp = params.dt * torch.sqrt(torch.clamp(comm.pmax(mesh, d2), min=0.0))
-    return replace(st, travel=st.travel + step_disp, sim_time=st.sim_time + params.dt)
+        v = views[s.index]
+        hoisted = tuple(s.buf[k] for k in PER_SLOT)
+        acc, xsph = forces(params, grid, v, home=s.home, hoisted=hoisted)
+        home_rows = replace(v, pos=s.field("pos"), vel=s.field("vel"))
+        pos, vel, travel = integrate.update(params, grid, home_rows, walls, acc, xsph, obstacles)
+        s.field("pos").copy_(pos)
+        s.field("vel").copy_(vel)
+        travels.append(travel)
+    if not travels:  # a process whose shard holds no cells
+        travels = [st.travel.new_zeros(())]
+    return replace(st, travel=st.travel + comm.pmax(mesh, travels),
+                   sim_time=st.sim_time + params.dt)
 
 
 def sharded_step(mesh: comm.Mesh, params: FluidParams, grid: nb.BinnedGrid, obstacles=None):

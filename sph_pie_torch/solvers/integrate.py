@@ -164,15 +164,6 @@ def _launch(mode, params, grid, b, walls, acc=None, xsph=None, obstacles=None):
     return pos, vel, travel
 
 
-def _device(fn: str, b: nb.BinnedState) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on anything else."""
-    if b.pos.device.type == "cpu":
-        return False
-    if b.pos.device.type != "cuda":
-        raise ValueError(f"{fn}: no kernel for device {b.pos.device}")
-    return True
-
-
 def update(
     params: FluidParams,
     grid: nb.BinnedGrid,
@@ -184,7 +175,7 @@ def update(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(pos, vel, travel) after the WCSPH update: ``update_plain`` on the
     CPU, the kernel on the card."""
-    if not _device("update", b):
+    if not _native.on_card("update", b.pos):
         return update_plain(params, grid, b, walls, acc, xsph, obstacles)
     out = _launch(_UPDATE, params, grid, b, walls, acc, xsph, obstacles)
     update.launches += 1
@@ -202,7 +193,7 @@ def predict(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(x*, travel) of PBF's prediction: ``predict_plain`` on the CPU, the
     kernel on the card."""
-    if not _device("predict", b):
+    if not _native.on_card("predict", b.pos):
         return predict_plain(params, grid, b, walls, obstacles)
     x_star, _, travel = _launch(_PREDICT, params, grid, b, walls, obstacles=obstacles)
     predict.launches += 1

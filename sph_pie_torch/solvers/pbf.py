@@ -42,7 +42,6 @@ from sph_pie_torch.core.params import FluidParams
 from sph_pie_torch.neighbors import binned as nb
 from sph_pie_torch.neighbors import pbf_folds as pf
 from sph_pie_torch.neighbors.density import density
-from sph_pie_torch.neighbors.pbf_folds import integer_pow as _integer_pow  # noqa: F401 (tests/test_torch_pbf.py)
 from sph_pie_torch.neighbors.pbf_folds import inv_r_of as _inv_r
 from sph_pie_torch.solvers import integrate
 from sph_pie_torch.solvers.wcsph import clamp_speed
@@ -126,33 +125,6 @@ def flagship_params(**overrides) -> PbfParams:
     cfg = dict(iters=2, sor=0.9, proj_cap_h=0.0625, epilogue="ride")
     cfg.update(overrides)
     return make_pbf_params(**cfg)
-
-
-def _pos(fields: dict, dim: int) -> torch.Tensor:
-    """[S, dim] positions of a fold's fields: ``pos``, or the planar
-    ``p0 ..`` components of the reference's signature. The planar form, and
-    the re-export of ``_integer_pow``, serve only
-    ``tests/test_torch_pbf.py::test_folds_match_reference`` and
-    ``test_integer_pow_is_repeated_squaring``, which call these helpers as
-    the reference's; they go with that test's next rewrite."""
-    if "pos" in fields:
-        return fields["pos"]
-    return torch.stack([fields[f"p{k}"] for k in range(dim)], dim=-1)
-
-
-def _lambda_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=pf.whole_grid):
-    """(lambda, rho) per slot from one fold over the predicted positions
-    (``fields``: pos and mass). ``step`` calls the fold itself, for the hit
-    words it returns beside them."""
-    return fold(pf.lambda_fold, params, pbf, grid, pos=_pos(fields, params.dim),
-                mass=fields["mass"])[:2]
-
-
-def _dx_fold(params: FluidParams, pbf: PbfParams, grid, fields, fold=pf.whole_grid):
-    """[S, dim] position corrections from the lambdas (``fields["lam"]``),
-    with the artificial pressure -k h^2 (W / W(dq h))^n."""
-    return fold(pf.dx_fold, params, pbf, grid, pos=_pos(fields, params.dim),
-                mass=fields["mass"], lam=fields["lam"])
 
 
 def _density_xsph_fold(params: FluidParams, grid, pos, vel, mass, m_rho, fold=pf.whole_grid):

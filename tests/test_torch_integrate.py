@@ -2,8 +2,8 @@
 
 On the CPU ``update`` and ``predict`` must give the bits of the torch
 composition the two steps ran before the update became one kernel
-(``old_update`` and ``old_predict`` below, copied from them), launch
-nothing, and refuse a device with no kernel. The card test holds the kernel
+(``old_update`` and ``old_predict`` below, copied from them) and launch
+nothing (a device with no kernel: ``test_torch_native.py``). The card test holds the kernel
 (``csrc/integrate.cu``) against the plain version on the card, bit for bit.
 The cases: 2D and 3D, a periodic channel (an axis without walls), frozen
 boundary slots, an obstacle term (one still sphere; six moving spheres and
@@ -216,15 +216,6 @@ def test_cpu_gives_the_old_composition(mode, name, dtype):
         want = old_predict(params, grid, b, obstacles)
     assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
     assert (integrate.update.launches, integrate.predict.launches) == launches
-
-
-def test_no_kernel_for_other_devices():
-    params, grid, b, acc, xsph, _ = make_case("2d", torch.float32, "cpu")
-    meta = nb.BinnedState(**{k: v.to("meta") for k, v in vars(b).items()})
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        integrate.update(params, grid, meta, None, acc.to("meta"), xsph.to("meta"))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        integrate.predict(params, grid, meta, None)
 
 
 @pytest.fixture

@@ -5,10 +5,13 @@ with the number of arguments ``_SIGNATURES`` declares (ctypes cannot see a
 mismatch; it would only show as a wrong result on the card), every
 launcher defined there is bound, two threads of one process build and load
 the library once, and every module of the port (and ``chip_smoke.py``)
-imports without JAX, down to the imports inside its functions.
+imports without JAX, down to the imports inside its functions, and every
+entry point with a kernel and a plain version takes its route from
+``on_card``: a device with no kernel raises.
 """
 
 import ast
+import functools
 import re
 import subprocess
 import sys
@@ -205,3 +208,73 @@ def test_the_import_scan_sees_imports_inside_functions(tmp_path):
         "    return __import__('jaxlib')\n"
     )
     assert [m for _, m in _imports(src)] == ["os", "sph_pie_tpu.service", "jax.numpy", "jaxlib"]
+
+
+@functools.cache
+def _meta_case():
+    """A small 3D scene's params, grid and PBF knobs, and its binned state
+    with every tensor moved to ``meta``, a device with no kernel."""
+    from sph_pie_torch.neighbors import binned as nb
+    from sph_pie_torch.scenes import builders
+    from sph_pie_torch.solvers import pbf
+
+    s = builders.dam_break_3d(500, device="cpu")
+    b = s.binned_state()
+    meta = nb.BinnedState(**{k: v.to("meta") for k, v in vars(b).items()})
+    return s.params, s.bgrid, pbf.make_pbf_params(device="cpu"), b, meta
+
+
+def _route_calls():
+    """{entry point: a call of it on ``meta`` tensors}: every function that
+    picks its plain version or its kernel by the device."""
+    from sph_pie_torch.micro import center_slab, forces_mma
+    from sph_pie_torch.neighbors import density, density_window, expand, forces
+    from sph_pie_torch.neighbors import pbf_folds as pf
+    from sph_pie_torch.solvers import integrate
+
+    p, g, pp, b, m = _meta_case()
+
+    def slab():
+        return tuple(t.to("meta") for t in center_slab.center_slab_inputs(g, b))
+
+    def expand_args():
+        counts = torch.zeros(g.num_cells, dtype=torch.int32, device="meta")
+        rows = torch.zeros((4, 2 * g.dim + 2), dtype=m.pos.dtype, device="meta")
+        owner = torch.zeros(4, dtype=torch.int32, device="meta")
+        return counts, counts, rows, owner, g.cap
+
+    return {
+        "density": lambda: density.density(p, g, m),
+        "forces": lambda: forces.forces(p, g, m),
+        "expand": lambda: expand.expand(*expand_args()),
+        "update": lambda: integrate.update(p, g, m, None, m.vel, m.vel),
+        "predict": lambda: integrate.predict(p, g, m, None),
+        "lambda_fold": lambda: pf.lambda_fold(p, pp, g, m.pos, m.mass),
+        "dx_fold": lambda: pf.dx_fold(p, pp, g, m.pos, m.mass, m.mass),
+        "density_xsph_fold": lambda: pf.density_xsph_fold(p, g, m.pos, m.vel, m.mass, m.mass),
+        "vorticity_fold": lambda: pf.vorticity_fold(p, g, m.pos, m.vel, m.mass, m.mass),
+        "vorticity_eta_fold": lambda: pf.vorticity_eta_fold(p, g, m.pos, m.mass, m.mass),
+        "density_cap32": lambda: density_window.density_cap32(p, g, m),
+        "density_window": lambda: density_window.density_window(p, g, m),
+        "center_slab_dense": lambda: center_slab.center_slab_dense(g, slab()),
+        "center_slab_compact": lambda: center_slab.center_slab_compact(g, slab(), 32),
+        "forces_mma": lambda: forces_mma.forces_mma(p, g, m),
+    }
+
+
+ROUTES = (
+    "density", "forces", "expand", "update", "predict", "lambda_fold", "dx_fold",
+    "density_xsph_fold", "vorticity_fold", "vorticity_eta_fold", "density_cap32",
+    "density_window", "center_slab_dense", "center_slab_compact", "forces_mma",
+)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_a_device_without_a_kernel_raises(route):
+    """Each entry point asks ``_native.on_card`` where it runs: a tensor on
+    neither the CPU nor a card (``meta``) raises with the entry point's
+    name, before any launch."""
+    calls = _route_calls()
+    assert sorted(calls) == sorted(ROUTES)
+    with pytest.raises(ValueError, match=f"^{route}: no kernel for device meta$"):
+        calls[route]()

@@ -6,7 +6,8 @@ in-process mesh of 8 shards, as the reference's 8 virtual devices) against
 the reference's on scenes without frozen walls, a moving obstacle among
 them, and against the reference's single-device step on every scene, a
 frozen-wall scene included, where the reference's halo step moves the
-frozen particles; a 100-step roll through a rebin; the guards; sharded PBF;
+frozen particles, and against the port's own single-device step bit for
+bit; a 100-step roll through a rebin; the guards; sharded PBF;
 the dry run; and a gloo process group of 4 ranks against the in-process
 mesh, bit for bit. Bars are the reference tests' own
 (``tests/test_halo.py``, ``tests/test_sharding.py``): positions 1e-6 over
@@ -75,7 +76,8 @@ def mesh():
 def runs(jmesh, mesh):
     """{(scene, obstacle?): {run name: final BinnedState fields}}: the
     reference's single-device, halo and (without walls) sharded steps, and
-    the port's halo and sharded steps, 10 steps each from the same state."""
+    the port's single-device, halo and sharded steps, 10 steps each from the
+    same state."""
     out = {}
     for name, make in SCENES.items():
         for with_obs in ((False, True) if name == "dam_break" else (False,)):
@@ -102,6 +104,10 @@ def runs(jmesh, mesh):
 
             scene = convert.scene(ref, device="cpu")
             tobs = None if obs is None else convert.obstacles(jax_fields(obs), device="cpu")
+            b = scene.binned_state()
+            for _ in range(STEPS):
+                b = tw.step(scene.params, scene.bgrid, b, tobs)
+            got["port single"] = convert.to_numpy(b)
             for kind, step in (
                 ("port halo", halo.make_halo_step(mesh, scene.params, scene.bgrid, tobs)[0]),
                 ("port sharded", sharding.sharded_step(mesh, scene.params, scene.bgrid, tobs)),
@@ -135,6 +141,18 @@ def test_steps_match_the_reference(runs, scene, obstacle, ref, port):
     got = runs[(scene, obstacle)]
     _close(got[port], got[ref])
     assert got[port]["sim_time"] == pytest.approx(float(got[ref]["sim_time"]))
+
+
+@pytest.mark.parametrize("port", ["port halo", "port sharded"])
+@pytest.mark.parametrize("scene,obstacle", [("dam_break", False), ("dam_break", True),
+                                            ("frozen_walls", False)])
+def test_steps_equal_the_ports_single_device_step(runs, scene, obstacle, port):
+    """The port's halo and sharded steps run the single-device step's own
+    pair sums and update (``integrate.update``) on each shard, so after 10
+    steps they equal ``wcsph_binned.step`` bit for bit."""
+    got = runs[(scene, obstacle)]
+    for k in ("pos", "vel", "density", "pressure", "travel", "sim_time"):
+        assert torch.equal(torch.as_tensor(got[port][k]), torch.as_tensor(got["port single"][k])), k
 
 
 def test_reference_halo_step_moves_frozen_particles(runs):
@@ -340,10 +358,11 @@ def test_wrappers_take_a_home_range():
         lo, hi = max(first - hc, 0), min(first + count + hc, g.num_cells)
         rows = slice(lo * cap, hi * cap)
         home = slice(first * cap, (first + count) * cap)
-        view = sharding.View(b.pos[rows], b.vel[rows], b.mass[rows], b.valid[home])
-        per = tuple(x[rows] for x in tfor._per_slot(b))
+        view = sharding.View(b.pos[rows], b.vel[rows], b.mass[rows], b.valid[home],
+                             b.owner[home], b.travel, b.sim_time)
+        per = tuple(x[rows] for x in tfor.per_slot(b.density, b.pressure, b.mass))
         r = tden.density(p, g, view, home=(first - lo, count))
-        a, x = tfor.forces(p, g, view, home=(first - lo, count), per_slot=per)
+        a, x = tfor.forces(p, g, view, home=(first - lo, count), hoisted=per)
         assert torch.equal(r, rho[home])
         assert torch.equal(a, acc[home]) and torch.equal(x, xsph[home])
     with pytest.raises(ValueError, match="do not lie"):

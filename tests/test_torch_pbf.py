@@ -19,6 +19,7 @@ import torch
 from _torch_parity import jax_fields, port_inputs, scaled_err
 from sph_pie_torch import convert
 from sph_pie_torch.neighbors import binned as tnb
+from sph_pie_torch.neighbors import pbf_folds as pf
 from sph_pie_torch.scenes import builders as tb
 from sph_pie_torch.solvers import pbf as tp
 from sph_pie_torch.solvers import wcsph_binned as tw
@@ -170,7 +171,6 @@ def check_folds(scene_id: str):
         dtype = np.asarray(jst.pos).dtype
         m_rho = np.asarray(jst.mass) / 1000.0 * rng.uniform(0.9, 1.1, v.shape).astype(dtype)
         jf = {**jw._planar("p", jst.pos), "mass": jst.mass}
-        tf = {**tnb._planar("p", tst.pos), "mass": tst.mass}
 
         def close(got, want, rel=False):
             got, want = got.numpy()[v], np.asarray(want)[v]
@@ -178,12 +178,12 @@ def check_folds(scene_id: str):
             assert err < tol, err
 
         jlam, jrho = jp._lambda_fold(scene.params, jpp, jg, jf)
-        tlam, trho = tp._lambda_fold(params, tpp, grid, tf)
+        tlam, trho = pf.lambda_fold(params, tpp, grid, pos=tst.pos, mass=tst.mass)[:2]
         close(trho, jrho, rel=True)
         close(tlam, jlam)
 
         lam = torch.tensor(np.asarray(jlam))
-        close(tp._dx_fold(params, tpp, grid, {**tf, "lam": lam}),
+        close(pf.dx_fold(params, tpp, grid, pos=tst.pos, mass=tst.mass, lam=lam),
               jp._dx_fold(scene.params, jpp, jg, {**jf, "lam": jlam}))
 
         jr, jdv = jp._density_xsph_fold(scene.params, jg, jst.pos, jst.vel, jst.mass,
@@ -205,9 +205,9 @@ def check_folds(scene_id: str):
 def test_integer_pow_is_repeated_squaring():
     x = torch.tensor([0.3, 1.7, 2.0], dtype=torch.float64)
     for n in (1, 2, 3, 4, 5, 8):
-        assert torch.allclose(tp._integer_pow(x, n), x**n, rtol=1e-15)
+        assert torch.allclose(pf.integer_pow(x, n), x**n, rtol=1e-15)
     x4 = x * x
-    assert torch.equal(tp._integer_pow(x, 4), x4 * x4)
+    assert torch.equal(pf.integer_pow(x, 4), x4 * x4)
 
 
 # ---------------------------------------------------------------- step

@@ -5,8 +5,8 @@ numpy seed (a binned dam break whose moving particles are nudged, with
 random velocities, lambdas, XSPH weights and vorticities): float64 to
 1e-12, float32 to 1e-5, scale-normalised (densities relative), as
 ``test_torch_pbf.check_folds`` holds them. Then ``home=`` on a buffer cut
-from the grid against the whole grid's rows, the device rule, the routing
-of every fold of a step through ``fold``, the sharded PBF on an in-process
+from the grid against the whole grid's rows, the routing of every fold
+of a step through ``fold``, the sharded PBF on an in-process
 mesh against one device bit for bit, and the launchers' reading nothing
 back to the host. The kernels themselves run on the card
 (``chip_smoke.py`` Phase A and D)."""
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_fields, port_inputs, scaled_err
-from sph_pie_torch import convert
+from sph_pie_torch import _native, convert
 from sph_pie_torch.neighbors import binned as tnb
 from sph_pie_torch.neighbors import pbf_folds as pf
 from sph_pie_torch.parallel import comm, sharding
@@ -173,17 +173,6 @@ def test_home_range_equals_whole_grid(scene_id, op):
         fn(*cut, home=(hi - lo - count + 1, count))
 
 
-@pytest.mark.parametrize("op", OPS)
-def test_a_device_without_a_kernel_raises(op):
-    """A tensor on neither the CPU nor a card (``meta``) raises, before any
-    launch."""
-    _, _, calls = _fold_args("2d_f64")
-    fn, args = calls[op]
-    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) and a.dim() else a for a in args)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        fn(*meta)
-
-
 @pytest.mark.parametrize("config,order", [
     ("flagship", ["lambda", "dx", "lambda", "dx", "density_xsph"]),
     ("vorticity", ["lambda", "dx", "lambda", "dx", "vorticity", "vorticity_eta",
@@ -236,7 +225,7 @@ def test_launchers_read_nothing_back():
     banned_attrs = {"item", "tolist", "nonzero", "cpu", "numpy"}
     banned_names = {"bool", "int", "float"}
     for fn in (*pf.FOLDS, pf._launch, pf._walk, pf._checked, pf.words_per_slot, pf._prm,
-               pf._device, pf._dx_constants):
+               _native.on_card, pf._dx_constants):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         for node in ast.walk(tree):
             if not isinstance(node, ast.Call):
