@@ -335,7 +335,14 @@ KERNELS = {
     "pbf_density_xsph": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:269"),
     "pbf_vorticity": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:318"),
     "pbf_vorticity_eta": ("sph_pie_torch/csrc/pbf.cu", "sph_pie_tpu/solvers/pbf.py:360"),
+    # PBF's per-slot passes: the reference leaves them to XLA, which fuses
+    # them; "replaces" names their first line.
+    "project": ("sph_pie_torch/csrc/integrate.cu", "sph_pie_tpu/solvers/pbf.py:512"),
+    "pbf_velocity": ("sph_pie_torch/csrc/integrate.cu", "sph_pie_tpu/solvers/pbf.py:544"),
+    "pbf_mix": ("sph_pie_torch/csrc/integrate.cu", "sph_pie_tpu/solvers/pbf.py:578"),
 }
+# The modes of csrc/integrate.cu that PBF's step launches besides predict.
+PBF_PASSES = ("project", "pbf_velocity", "pbf_mix")
 
 
 class CheckFailed(RuntimeError):
@@ -595,14 +602,15 @@ def ulp_gap(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((a - b).abs().max())
 
 
-def phase_a_integrate() -> None:
+def phase_a_integrate() -> list[dict]:
     """The step loop's update kernel (``csrc/integrate.cu``: WCSPH's update,
     PBF's prediction) against its plain version, the torch composition, on
     the 1M dam break after 5 WCSPH steps (its own forces), then with
     seeded N(0, 30) m/s velocities on every slot (the speed clamp and the
     walls' damping at work), then with E3's sphere (the obstacle term in
     the kernel); bit for bit. Times the kernel against the plain version
-    and its least time (bytes: the obstacle term adds none)."""
+    and its least time (bytes: the obstacle term adds none). Then PBF's
+    three passes (``pbf_passes``); returns their rows of the kernels line."""
     from sph_pie_torch.kernels import eos
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.forces import forces
@@ -649,6 +657,81 @@ def phase_a_integrate() -> None:
                   f"{least[mode][0]:.4f} ms ({least[mode][1]}, {least[mode][0] / k_ms:.1%})")
             check(not diff, f"integrate {mode} ({label}) differs from plain in {diff}")
     print(f"  slots {S}, moving {moving}")
+    del s, b, rho, acc, xsph, fast
+    return pbf_passes()
+
+
+def pbf_passes() -> list[dict]:
+    """PBF's passes of ``csrc/integrate.cu`` (project, pbf_velocity,
+    pbf_mix) against their plain versions, bit for bit, on D1's scene two
+    flagship steps in: the third step's prediction and first projection's
+    folds (the state after a projection, its epilogue's fold), then with
+    seeded N(0, 30) m/s velocities on every slot: dt v as the displacement
+    (past the cap on most slots), x* - dt v as the step-start positions and
+    v as the velocity the XSPH sum is added to (past the speed clamp).
+    Times each against its plain version and its least time (bytes: every
+    slot's valid flag and the outputs written to every slot, the fold's
+    density of the valid slots, the moving slots' other inputs)."""
+    from sph_pie_torch.neighbors import pbf_folds as pf
+    from sph_pie_torch.scenes import dam_break_3d
+    from sph_pie_torch.solvers import integrate, pbf, wcsph_binned
+    from sph_pie_torch.utils.struct import replace
+
+    print("== Phase A: PBF's passes (csrc/integrate.cu) against their plain versions, D1's "
+          "scene two steps in")
+    s = dam_break_3d(1_000_000, device="cuda")
+    p, g, pp = s.params, s.bgrid, pbf.flagship_params()
+    walls = wcsph_binned.wall_axes(g)
+    b = pbf.simulate(p, g, pp, s.binned_state(), 2)
+    x_star, travel = integrate.predict(p, g, b, walls)
+    b = replace(b, pos=x_star, vel=b.pos, travel=travel)  # ride: x0 in the vel slots
+    lam, _, words = pf.lambda_fold(p, pp, g, b.pos, b.mass)
+    dx = pf.dx_fold(p, pp, g, b.pos, b.mass, lam, words)
+    del lam, words
+    cap = torch.clamp(pp.proj_cap_h * p.h, max=0.5 * g.skin)
+    pos, travel = integrate.project(p, g, b, walls, dx, pp.sor, cap)
+    after = replace(b, pos=pos, travel=travel)
+    m_rho, vel = integrate.pbf_velocity(p, g, after, after.vel, after.density)
+    rho, dv = pf.density_xsph_fold(p, g, after.pos, vel, after.mass, m_rho)
+    S, dim, es = g.num_slots, g.dim, b.pos.element_size()
+    moving, valid = int(integrate._moves(g, b).sum()), int(b.valid.sum())
+    rng = np.random.default_rng(13)
+    fast = torch.as_tensor(rng.normal(0.0, 30.0, tuple(b.pos.shape)), dtype=b.pos.dtype,
+                           device="cuda")
+    least = {
+        "project": bound(S * (1 + 2 * dim * es) + moving * dim * es, 0),
+        "pbf_velocity": bound(S * (1 + 3 * es + dim * es) + moving * 2 * dim * es, 0),
+        "pbf_mix": bound(S * (1 + es + dim * es) + valid * es + moving * 2 * dim * es, 0),
+    }
+    cases = {
+        "project": (
+            ("after a projection", (p, g, b, walls, dx, pp.sor, cap)),
+            ("N(0, 30) velocities", (p, g, b, walls, fast * p.dt / pp.sor, pp.sor, cap))),
+        "pbf_velocity": (
+            ("after a projection", (p, g, after, after.vel, after.density)),
+            ("N(0, 30) velocities", (p, g, after, after.pos - p.dt * fast, after.density))),
+        "pbf_mix": (
+            ("after a projection", (p, g, after, vel, dv, p.xsph_eps, rho)),
+            ("N(0, 30) velocities", (p, g, after, fast, dv, p.xsph_eps, rho))),
+    }
+    rows = []
+    for mode, runs in cases.items():
+        kernel = getattr(integrate, mode)
+        plain = getattr(integrate, f"{mode}_plain")
+        for label, args in runs:
+            got, want = kernel(*args), plain(*args)
+            diff = [k for k, (a, w) in enumerate(zip(got, want)) if not torch.equal(a, w)]
+            gap = max(ulp_gap(a, w) for a, w in zip(got, want))
+            k_ms, p_ms = cuda_ms(lambda: kernel(*args), 20), cuda_ms(lambda: plain(*args), 20)
+            print(f"  {mode:12s} {label}: outputs that differ {diff or 'none'} of {len(got)}, "
+                  f"largest ulp gap {gap}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{least[mode][0]:.4f} ms ({least[mode][1]}, {least[mode][0] / k_ms:.1%}) "
+                  f"[{card()}]")
+            check(not diff, f"integrate {mode} ({label}) differs from plain in outputs {diff}")
+            if label == "after a projection":
+                rows.append(kernel_row(mode, 0, 0.0, k_ms, p_ms, least[mode]))
+    print(f"  slots {S}, moving {moving}")
+    return rows
 
 
 def ragged_rows(rng, C: int, cap: int, ncol: int, dtype, cut: str):
@@ -1262,9 +1345,21 @@ def pbf_kernels():
 
 
 def reset_pbf() -> None:
+    from sph_pie_torch.solvers import integrate
+
     for k in pbf_kernels():
         k.launches = 0
     pbf_kernels()[1].word_launches = 0
+    for name in PBF_PASSES:
+        getattr(integrate, name).launches = 0
+
+
+def read_passes() -> dict:
+    """{mode: launches} of PBF's passes of ``csrc/integrate.cu`` since
+    ``reset_pbf``."""
+    from sph_pie_torch.solvers import integrate
+
+    return {name: getattr(integrate, name).launches for name in PBF_PASSES}
 
 
 def dx_word_launches() -> int:
@@ -1504,7 +1599,7 @@ def pbf_bounds(grid, b, pairs: int) -> dict:
     return roofline.pbf_bounds(grid.num_slots, occupied, grid.dim, b.pos.element_size(), pairs)
 
 
-def phase_d1() -> dict:
+def phase_d1() -> tuple[dict, dict]:
     from sph_pie_torch.neighbors import pbf_folds as pf
     from sph_pie_torch.neighbors.density import density
     from sph_pie_torch.neighbors.expand import expand
@@ -1542,7 +1637,7 @@ def phase_d1() -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / D_STEPS)
     launches = {"expand": expand.launches, "density": density.launches,
-                "predict": integrate.predict.launches, **read_pbf()}
+                "predict": integrate.predict.launches, **read_passes(), **read_pbf()}
     dx_walks = dx_word_launches()
     # ---- counts read here ----
     peak = torch.cuda.max_memory_allocated()
@@ -1575,6 +1670,10 @@ def phase_d1() -> dict:
     check(launches["expand"] == 1 + rebins, f"expand launches {launches} != 1 + rebins {rebins}")
     check(launches["density"] == 0, "the flagship step launches no density kernel")
     check(launches["predict"] == run, f"predict launches {launches['predict']} != steps {run}")
+    check(launches["project"] == pp.iters * run
+          and launches["pbf_velocity"] == launches["pbf_mix"] == run,
+          f"PBF pass launches {launches}: project {pp.iters * run}, pbf_velocity and pbf_mix "
+          f"{run}")
     check(launches["lambda"] == launches["dx"] == pp.iters * run
           and launches["density_xsph"] == run
           and launches["vorticity"] == launches["vorticity_eta"] == 0,
@@ -1618,7 +1717,7 @@ def phase_d1() -> dict:
     rows = {op: kernel_row(f"pbf_{op}", launches[op], errs[op], fold_ms[op], plain_ms[op],
                            least[op])
             for op in calls}
-    return rows
+    return rows, {name: launches[name] for name in PBF_PASSES}
 
 
 def pbf_cases(device: str, n: int) -> dict:
@@ -1654,10 +1753,15 @@ def phase_d2() -> dict:
     # ---- the four configurations on the card: counts start at 0 here ----
     card = pbf_cases("cuda", n)
     torch.cuda.synchronize()
-    folds = read_pbf()
+    folds, passes = read_pbf(), read_passes()
     # ---- counts read here ----
     check(density.launches == 2 * D2_STEPS, f"density launches {density.launches}")
     iters = 2 * 4  # every configuration runs 2 Jacobi iterations
+    # a mix a step after the fused fold (flagship, gather), two with vorticity
+    # (its force, then XSPH), none without XSPH
+    want = {"project": iters * D2_STEPS, "pbf_velocity": 4 * D2_STEPS,
+            "pbf_mix": 4 * D2_STEPS}
+    check(passes == want, f"D2 pass launches {passes}, want {want}")
     check(folds["lambda"] == folds["dx"] == iters * D2_STEPS
           and folds["density_xsph"] == 3 * D2_STEPS
           and folds["vorticity"] == folds["vorticity_eta"] == D2_STEPS,
@@ -1668,7 +1772,7 @@ def phase_d2() -> dict:
     print(f" CPU runs {time.perf_counter() - t0:.1f} s; density kernel launches on the card "
           f"{density.launches} (vorticity and no xsph: one a step each); PBF kernel launches on "
           f"the card {folds} (the vorticity configuration launches both vorticity kernels "
-          f"once a step)")
+          f"once a step); PBF passes {passes}")
     for name, (s, b) in card.items():
         sc, bc = cpu[name]
         cap = s.state.capacity
@@ -1969,14 +2073,16 @@ def phase_e3(b_ms: float) -> None:
     st, overflow = run_lib.run_epochs(p, g, s.state, em, obs, E3_PBF_STEPS, 1,
                                       pbf_params=pbf.flagship_params())
     torch.cuda.synchronize()
-    folds = read_pbf()
+    folds, passes = read_pbf(), read_passes()
     # ---- counts read here ----
     print(f" PBF flagship, 1 epoch of {E3_PBF_STEPS} steps with the sphere: "
           f"{(time.perf_counter() - t0) * 1e3 / E3_PBF_STEPS:.1f} ms/step, launches "
-          f"{read_launches()}, PBF kernels {folds}")
+          f"{read_launches()}, PBF kernels {folds}, PBF passes {passes}")
     check_in_box(p, st, overflow, "E3 PBF")
     check(folds["lambda"] == folds["dx"] == 2 * E3_PBF_STEPS
           and folds["density_xsph"] == E3_PBF_STEPS, f"E3: PBF kernel launches {folds}")
+    check(passes == {"project": 2 * E3_PBF_STEPS, "pbf_velocity": E3_PBF_STEPS,
+                     "pbf_mix": E3_PBF_STEPS}, f"E3: PBF pass launches {passes}")
     del st, s
 
     s = dam_break_3d(E3_PBF_N, device="cuda")
@@ -2582,7 +2688,7 @@ def phase_g4() -> None:
     # ---- the dry run: counts start at 0 here ----
     with contextlib.redirect_stdout(buf):
         out = dryrun.dryrun_multichip(G_BAL_SHARDS, device="cuda")
-    folds = read_pbf()
+    folds, passes = read_pbf(), read_passes()
     dx_walks = dx_word_launches()
     # ---- counts read here ----
     gline(f"== Phase G4: dryrun_multichip({G_BAL_SHARDS}) on the card")
@@ -2592,10 +2698,13 @@ def phase_g4() -> None:
     # a launch a shard a fold, then the same 2 steps on the whole grid
     want = {"lambda": 2 * 2 * (G_BAL_SHARDS + 1), "dx": 2 * 2 * (G_BAL_SHARDS + 1),
             "density_xsph": 0, "vorticity": 0, "vorticity_eta": 0}
+    # the step around the folds runs on the whole state: no XSPH, so no mix
+    want_passes = {"project": 2 * 2 * 2, "pbf_velocity": 2 * 2, "pbf_mix": 0}
     gline(f"  PBF kernel launches of the dry run: {folds} (the PBF leg's: {want}); dx "
-          f"through lambda's hit words {dx_walks}")
+          f"through lambda's hit words {dx_walks}; PBF passes {passes}")
     check(set(out) == {"balanced", "shape", "pbf", "periodic"}, "G4: a leg is missing")
     check(folds == want, f"G4: PBF kernel launches {folds}, want {want}")
+    check(passes == want_passes, f"G4: PBF pass launches {passes}, want {want_passes}")
     check(dx_walks == folds["dx"], f"G4: dx walked lambda's words in {dx_walks} launches")
 
 
@@ -2808,17 +2917,20 @@ def phase_h1(b_ms: float) -> dict:
             pbf, pbf_wall = c.execute("h1-pbf", "dam_break_3d",
                                       {"n_target": H_PBF_N, "solver": "pbf"}, H_PBF_STEPS,
                                       H_PBF_STEPS // 2)
-            folds = read_pbf()
+            folds, passes = read_pbf(), read_passes()
             # ---- counts read here ----
             last = pbf["steps"][-1]
             gline(f"  PBF run (solver pbf, dam_break_3d({H_PBF_N:_})): {pbf['status']} in "
                   f"{pbf_wall:.2f} s, steps {[r['step'] for r in pbf['steps']]}, n_active "
                   f"{last['n_active']}, overflow {last['overflow']}, kinetic energy "
-                  f"{last['kinetic_energy']:.4e}, PBF kernel launches {folds}")
+                  f"{last['kinetic_energy']:.4e}, PBF kernel launches {folds}, PBF passes "
+                  f"{passes}")
             iters = folds["lambda"] // H_PBF_STEPS
             check(folds["density_xsph"] == H_PBF_STEPS and iters > 0
                   and folds["lambda"] == folds["dx"] == iters * H_PBF_STEPS,
                   f"H1: PBF kernel launches {folds}")
+            check(passes == {"project": iters * H_PBF_STEPS, "pbf_velocity": H_PBF_STEPS,
+                             "pbf_mix": H_PBF_STEPS}, f"H1: PBF pass launches {passes}")
             check(last["overflow"] == 0 and last["kinetic_energy"] > 0
                   and [r["step"] for r in pbf["steps"]] == [H_PBF_STEPS // 2, H_PBF_STEPS],
                   "H1: the PBF run")
@@ -2955,10 +3067,11 @@ def main() -> int:
     torch.manual_seed(0)
     seconds = {}
     with torch.no_grad():
+        pass_rows = []
         for name, phase in (("A", phase_a), ("A integrate", phase_a_integrate),
                             ("A micro", phase_a_micro), ("A pbf", phase_a_pbf)):
             t0 = time.perf_counter()
-            phase()
+            pass_rows += phase() or []
             seconds[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
         rows, main_path, b_ms = phase_b()
@@ -2968,14 +3081,16 @@ def main() -> int:
         seconds["C"] = time.perf_counter() - t0
         del main_path
         t0 = time.perf_counter()
-        pbf_rows = phase_d1()
+        pbf_rows, d1_passes = phase_d1()
         seconds["D1"] = time.perf_counter() - t0
+        for row in pass_rows:  # their path: D1's flagship steps
+            row["launches"] = d1_passes[row["name"]]
         t0 = time.perf_counter()
         d2_folds = phase_d2()
         seconds["D2"] = time.perf_counter() - t0
         for op in ("vorticity", "vorticity_eta"):  # their path: D2's vorticity configuration
             pbf_rows[op]["launches"] = d2_folds[op]
-        rows += list(pbf_rows.values())
+        rows += list(pbf_rows.values()) + pass_rows
         for name, phase in (("E1", phase_e1),
                             ("E2", phase_e2), ("E3", lambda: phase_e3(b_ms)), ("E4", phase_e4)):
             t0 = time.perf_counter()

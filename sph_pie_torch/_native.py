@@ -71,6 +71,12 @@ _SIGNATURES = {
         f"sph_integrate_{t}": [_I] + [_P] * 5 + [_I, _I] + [_P] * 16 + [_L, _I, _I, _L, _P]
         for t in ("f32", "f64")
     },
+    # integrate_pbf: mode, the 18 input pointers, valid, owner, pos out, vel
+    # out, rho out, travel out, scratch, S, dim, wall axes, frozen from
+    **{
+        f"sph_integrate_pbf_{t}": [_I] + [_P] * 8 + [_L, _I, _I, _L, _P]
+        for t in ("f32", "f64")
+    },
     **{
         f"sph_forces_{t}": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P

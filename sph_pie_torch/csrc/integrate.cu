@@ -1,4 +1,4 @@
-// The per-slot update of the binned solvers' step loop, in one pass.
+// The per-slot passes of the binned solvers' step loop, one launch each.
 //
 // Replaces no TPU kernel: the JAX package leaves these elementwise passes
 // to XLA, which fuses them. The port ran them as eager torch operations,
@@ -6,8 +6,9 @@
 // move mask, Euler, the speed clamp, XSPH, the max reduction of travel),
 // 1.8 ms of a 5.8 ms step of the 1M dam break (PERF.md); the obstacle
 // penalty (scenes/obstacles.accel) was ~28 more launches over every slot,
-// with [S, M, DIM] temporaries. This kernel makes them one pass, in
-// instantiations chosen by the call site (solvers/integrate.py):
+// with [S, M, DIM] temporaries; PBF's projections and epilogue ~4.7 ms of
+// a 13.2 ms step. This kernel makes each group one pass, in instantiations
+// chosen by the call site (solvers/integrate.py):
 //
 //   UPDATE (wcsph_binned.step, after forces), on the slots that move:
 //     a  = ((acc + g) + wall(x, v)) [+ obstacle(x, v, t)]
@@ -18,6 +19,14 @@
 //   travel' = travel + sqrt(max |x* - x|^2).
 // The obstacle term is the OBS instantiations' (a scene with an Obstacles,
 // even one with no shapes); the others compile without it.
+//   PBF's other passes, an overload of the same name on PbfArgs (pbf.step):
+//   PROJECT after each dx fold, d = sor dx capped at proj_cap, x' = x + d
+//     clamped to the box on the wall axes, travel' = travel + max |d|;
+//   VELOCITY before the epilogue's fold, m / rho_prev (rho0 where it is not
+//     positive) and v = clamp((x* - x0) / dt), minimum image on the periodic
+//     axes; MIX after each later fold, max(valid ? rho : 0, floor) and
+//     v' = clamp(v + coef dv). Slots that do not move keep x (PROJECT) or get
+//     v = 0.
 //
 // wall(x, v) = k (lo - hi) - (c min(max_k(lo_k + hi_k) / (0.1 h), 1)) v with
 // lo = max(bmin - x, 0), hi = max(x - bmax, 0), zeroed on the axes without
@@ -35,11 +44,12 @@
 // added; no shape at all gives +0, as torch's zeros_like does.
 //
 // Arithmetic: the torch composition's (integrate.py update_plain,
-// predict_plain), operation by operation and in its order: each product
+// predict_plain, project_plain, pbf_velocity_plain, pbf_mix_plain),
+// operation by operation and in its order: each product
 // and sum rounded on its own (__fmul_rn / __fadd_rn: torch runs them as
 // separate kernels, so nothing may be contracted into an FMA), rsqrt, sqrt,
-// sin and cos as torch's CUDA kernels call them, clamps and minimums that
-// pass NaN through, the sum of squares in the order of torch's reduction
+// sin, cos and round (half to even) as torch's CUDA kernels call them,
+// clamps, minimums and maximums that pass NaN through, the sum of squares in the order of torch's reduction
 // over a row of 2 or 3: x^2 + y^2, and (x^2 + z^2) + y^2 (two lanes, the
 // first holding elements 0 and 2), and the sums over the shapes in the order
 // of its reduction over the middle axis of [S, M, DIM]: four accumulators
@@ -55,7 +65,9 @@
 // What bounds it on the H100: bytes. Every slot's valid flag, pos in and
 // out, and (UPDATE) vel out; vel, acc and xsph (PREDICT: vel) only of the
 // slots that move: 0.43 GB (0.13 ms at 3.35 TB/s) for UPDATE on the 10.7M
-// slots of the 1M dam break in float32, 0.28 GB (0.084 ms) for PREDICT.
+// slots of the 1M dam break in float32, 0.28 GB (0.084 ms) for PREDICT and
+// PROJECT (dx in place of vel), 0.29 GB (0.087 ms) for VELOCITY (mass and
+// rho_prev in, m / rho out of every slot), 0.21 GB (0.063 ms) for MIX.
 // The obstacle term adds no bytes a slot: it reads the x and v the update
 // loads, and a few dozen shape constants every thread reads alike (cached);
 // its sines and cosines, a few dozen flops a shape, run only on the slots
@@ -70,6 +82,9 @@ namespace {
 
 constexpr int kUpdate = 0;
 constexpr int kPredict = 1;
+constexpr int kProject = 2;
+constexpr int kVelocity = 3;
+constexpr int kMix = 4;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -104,11 +119,36 @@ __device__ __forceinline__ unsigned long long umax(unsigned long long a, unsigne
   return a > b ? a : b;
 }
 
+// The largest over the grid of every thread's ``best`` (the bits of a
+// non-negative float, or of a NaN): the block's largest, then the grid's by
+// atomicMax into scratch[0]. True in one thread of the last block to finish
+// (scratch[1] counts them), with m the largest; false in every other.
+template <typename T>
+__device__ __forceinline__ bool grid_max(unsigned long long best, unsigned long long* scratch,
+                                         T& m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) best = umax(best, __shfl_xor_sync(0xffffffffu, best, off));
+  __shared__ unsigned long long warp_best[sph::kThreads / 32];
+  if (threadIdx.x % 32 == 0) warp_best[threadIdx.x / 32] = best;
+  __syncthreads();
+  if (threadIdx.x != 0) return false;
+  for (int w = 1; w < sph::kThreads / 32; ++w) best = umax(best, warp_best[w]);
+  atomicMax(&scratch[0], best);
+  __threadfence();
+  if (atomicAdd(&scratch[1], 1ull) != gridDim.x - 1) return false;
+  m = from_bits<T>(atomicMax(&scratch[0], 0ull));  // every block's, read at L2
+  return true;
+}
+
 // The sum of squares of a row, in the order of torch's CUDA sum over it.
 template <typename T, int DIM> __device__ __forceinline__ T sumsq(const T (&v)[DIM]) {
   if (DIM == 2) return add(mul(v[0], v[0]), mul(v[1], v[1]));
   return add(add(mul(v[0], v[0]), mul(v[2], v[2])), mul(v[1], v[1]));
 }
+
+// torch.round of CUDA tensors: half to even.
+__device__ __forceinline__ float round_t(float x) { return nearbyintf(x); }
+__device__ __forceinline__ double round_t(double x) { return nearbyint(x); }
 
 // torch.sin and torch.cos of CUDA tensors call these.
 __device__ __forceinline__ float sin_t(float x) { return sinf(x); }
@@ -365,30 +405,161 @@ __global__ void __launch_bounds__(sph::kThreads) integrate_slots(const Args<T> a
     best = umax(best, bits(sumsq<T, DIM>(d)));
   }
 
-  // The block's largest, then the grid's: the last block writes travel'.
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) best = umax(best, __shfl_xor_sync(0xffffffffu, best, off));
-  __shared__ unsigned long long warp_best[sph::kThreads / 32];
-  if (threadIdx.x % 32 == 0) warp_best[threadIdx.x / 32] = best;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int w = 1; w < sph::kThreads / 32; ++w) best = umax(best, warp_best[w]);
-  atomicMax(&a.scratch[0], best);
-  __threadfence();
-  if (atomicAdd(&a.scratch[1], 1ull) != gridDim.x - 1) return;
-  const T m = from_bits<T>(atomicMax(&a.scratch[0], 0ull));  // every block's, read at L2
+  T m;
+  if (!grid_max(best, a.scratch, m)) return;
   const T norm = root(clamp_lo(m, T(0)));
   a.travel_out[0] = add(a.travel[0], MODE == kUpdate ? mul(dt, norm) : norm);
 }
 
-template <typename T, int DIM, int MODE, bool OBS>
-cudaError_t run(const Args<T>& a, cudaStream_t st) {
-  const auto kernel = integrate_slots<T, DIM, MODE, OBS>;
-  static int per_sm = [kernel] {
-    int n = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, sph::kThreads, 0);
-    return n > 0 ? n : 1;
-  }();
+template <typename T>
+struct PbfArgs {
+  const T* pos;        // PROJECT: x; VELOCITY: x*
+  const T* dx;         // PROJECT: dx_fold's sum, before sor
+  const T* pos0;       // VELOCITY: the step-start positions
+  const T* vel;        // MIX: the velocity the sum is added to
+  const T* dv;         // MIX: the XSPH (or vorticity) sum
+  const T* rho;        // VELOCITY: the previous step's density; MIX: the fold's, or null
+  const T* mass;       // VELOCITY
+  const bool* valid;
+  const int* owner;
+  const T* sor;        // PROJECT
+  const T* proj_cap;   // PROJECT
+  const T* bmin;       // PROJECT [DIM]
+  const T* bmax;       // PROJECT [DIM]
+  const T* dt;         // VELOCITY
+  const T* max_speed;  // VELOCITY, MIX
+  const T* rho0;       // VELOCITY
+  const T* period;     // VELOCITY: [DIM] lengths, 0 on wall axes; null: no periodic axis
+  const T* coef;       // MIX: the sum's coefficient
+  const T* floor;      // MIX, with rho: the density floor
+  T* pos_out;          // PROJECT
+  T* vel_out;          // VELOCITY, MIX
+  T* rho_out;          // VELOCITY: m / rho; MIX, with rho: the floored density
+  const T* travel;     // PROJECT
+  T* travel_out;       // PROJECT
+  unsigned long long* scratch;  // PROJECT: as Args'
+  long long S;
+  long long frozen_from;
+  int walls;  // bit k: spatial axis k has walls
+};
+
+// torch.maximum: the first NaN operand, else the larger.
+__device__ __forceinline__ float maximum(float a, float b) {
+  return isnan(a) ? a : isnan(b) ? b : fmaxf(a, b);
+}
+__device__ __forceinline__ double maximum(double a, double b) {
+  return isnan(a) ? a : isnan(b) ? b : fmax(a, b);
+}
+
+// torch.clamp(x, lo, hi) with tensor bounds: NaN passes through.
+__device__ __forceinline__ float clamp_box(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ double clamp_box(double x, double lo, double hi) {
+  return isnan(x) ? x : fmin(fmax(x, lo), hi);
+}
+
+// wcsph.clamp_speed of one row, as torch runs it: every row is multiplied
+// by its scale, 1 where the speed is within the cap.
+template <typename T, int DIM>
+__device__ __forceinline__ void clamp_speed(T (&v)[DIM], T ms, T cap2) {
+  const T s2 = sumsq<T, DIM>(v);
+  const T scale = s2 > cap2 ? mul(ms, sph::rsqrt_t(s2)) : T(1);
+#pragma unroll
+  for (int e = 0; e < DIM; ++e) v[e] = mul(v[e], scale);
+}
+
+// PBF's PROJECT, VELOCITY and MIX (the header's), one slot a thread as
+// above; only PROJECT reduces.
+template <typename T, int DIM, int MODE>
+__global__ void __launch_bounds__(sph::kThreads) integrate_slots(const PbfArgs<T> a) {
+  T sor = T(0), cap = T(0), dt = T(0), rho0 = T(0), coef = T(0), least = T(0), ms = T(0);
+  T lo_b[DIM], hi_b[DIM];
+  if (MODE == kProject) {
+    sor = a.sor[0];
+    cap = a.proj_cap[0];
+#pragma unroll
+    for (int e = 0; e < DIM; ++e) {
+      lo_b[e] = a.bmin[e];
+      hi_b[e] = a.bmax[e];
+    }
+  } else {
+    ms = a.max_speed[0];
+  }
+  if (MODE == kVelocity) {
+    dt = a.dt[0];
+    rho0 = a.rho0[0];
+  }
+  if (MODE == kMix) {
+    coef = a.coef[0];
+    if (a.rho_out != nullptr) least = a.floor[0];
+  }
+  const T cap2 = mul(ms, ms);
+  unsigned long long best = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < a.S;
+       i += stride) {
+    const bool valid = a.valid[i];
+    if (MODE == kVelocity) {
+      const T r = a.rho[i];
+      a.rho_out[i] = quot(a.mass[i], r > T(0) ? r : rho0);
+    }
+    if (MODE == kMix && a.rho_out != nullptr) {
+      a.rho_out[i] = maximum(valid ? a.rho[i] : T(0), least);
+    }
+    bool move = valid;
+    if (move && a.frozen_from >= 0) move = a.owner[i] < a.frozen_from;
+    if (!move) {
+#pragma unroll
+      for (int e = 0; e < DIM; ++e) {
+        if (MODE == kProject) a.pos_out[i * DIM + e] = a.pos[i * DIM + e];
+        else a.vel_out[i * DIM + e] = T(0);
+      }
+      continue;
+    }
+    T v[DIM];
+    if (MODE == kProject) {
+#pragma unroll
+      for (int e = 0; e < DIM; ++e) v[e] = mul(sor, a.dx[i * DIM + e]);
+      const T n = root(clamp_lo(sumsq<T, DIM>(v), T(1e-30)));
+      const T r = clamp_hi(quot(cap, n), T(1));
+#pragma unroll
+      for (int e = 0; e < DIM; ++e) {
+        v[e] = mul(v[e], r);
+        const T x = add(a.pos[i * DIM + e], v[e]);
+        a.pos_out[i * DIM + e] = (a.walls >> e) & 1 ? clamp_box(x, lo_b[e], hi_b[e]) : x;
+      }
+      best = umax(best, bits(sumsq<T, DIM>(v)));
+      continue;
+    }
+    if (MODE == kVelocity) {
+#pragma unroll
+      for (int e = 0; e < DIM; ++e) {
+        T d = sub(a.pos[i * DIM + e], a.pos0[i * DIM + e]);
+        if (a.period != nullptr) {
+          const T L = a.period[e];
+          if (L > T(0)) d = sub(d, mul(L, round_t(quot(d, L))));
+        }
+        v[e] = quot(d, dt);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < DIM; ++e) v[e] = add(a.vel[i * DIM + e], mul(coef, a.dv[i * DIM + e]));
+    }
+    clamp_speed<T, DIM>(v, ms, cap2);
+#pragma unroll
+    for (int e = 0; e < DIM; ++e) a.vel_out[i * DIM + e] = v[e];
+  }
+  if (MODE != kProject) return;
+  T m;
+  if (!grid_max(best, a.scratch, m)) return;
+  a.travel_out[0] = add(a.travel[0], root(clamp_lo(m, T(0))));
+}
+
+// Launch ``kernel`` on as many blocks as fill the card (``per_sm`` a
+// multiprocessor), at most one thread a slot.
+template <typename A>
+cudaError_t fill_card(void (*kernel)(A), int per_sm, const A& a, cudaStream_t st) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -397,6 +568,27 @@ cudaError_t run(const Args<T>& a, cudaStream_t st) {
   const unsigned need = sph::blocks_for(a.S);
   kernel<<<need < fill ? need : fill, sph::kThreads, 0, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename A>
+int blocks_per_sm(void (*kernel)(A)) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, sph::kThreads, 0);
+  return n > 0 ? n : 1;
+}
+
+template <typename T, int DIM, int MODE, bool OBS>
+cudaError_t run(const Args<T>& a, cudaStream_t st) {
+  void (*kernel)(Args<T>) = integrate_slots<T, DIM, MODE, OBS>;
+  static const int per_sm = blocks_per_sm(kernel);
+  return fill_card(kernel, per_sm, a, st);
+}
+
+template <typename T, int DIM, int MODE>
+cudaError_t run_pbf(const PbfArgs<T>& a, cudaStream_t st) {
+  void (*kernel)(PbfArgs<T>) = integrate_slots<T, DIM, MODE>;
+  static const int per_sm = blocks_per_sm(kernel);
+  return fill_card(kernel, per_sm, a, st);
 }
 
 template <typename T, int DIM, int MODE>
@@ -440,6 +632,48 @@ int launch(int mode, const void* pos, const void* vel, const void* acc, const vo
   return mode == kUpdate ? dispatch<T, 3, kUpdate>(a, o, st) : dispatch<T, 3, kPredict>(a, o, st);
 }
 
+template <typename T, int MODE>
+cudaError_t dispatch_pbf(const PbfArgs<T>& a, int dim, cudaStream_t st) {
+  return dim == 2 ? run_pbf<T, 2, MODE>(a, st) : run_pbf<T, 3, MODE>(a, st);
+}
+
+template <typename T>
+int launch_pbf(int mode, const void* const* in, const void* valid, const void* owner,
+               void* pos_out, void* vel_out, void* rho_out, void* travel_out, void* scratch,
+               long long S, int dim, int walls, long long frozen_from, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto P = [in](int k) { return static_cast<const T*>(in[k]); };
+  const PbfArgs<T> a{
+      P(0), P(1), P(2), P(3), P(4), P(5), P(6),
+      static_cast<const bool*>(valid), static_cast<const int*>(owner),
+      P(7), P(8), P(9), P(10), P(11), P(12), P(13), P(14), P(15), P(16),
+      static_cast<T*>(pos_out), static_cast<T*>(vel_out), static_cast<T*>(rho_out),
+      P(17), static_cast<T*>(travel_out), static_cast<unsigned long long*>(scratch),
+      S, frozen_from, walls};
+  if ((dim != 2 && dim != 3) || S <= 0 || a.pos == nullptr || a.valid == nullptr ||
+      a.owner == nullptr)
+    return cudaErrorInvalidValue;
+  switch (mode) {
+    case kProject:
+      if (!a.dx || !a.sor || !a.proj_cap || !a.bmin || !a.bmax || !a.pos_out || !a.travel ||
+          !a.travel_out || !a.scratch)
+        return cudaErrorInvalidValue;
+      return dispatch_pbf<T, kProject>(a, dim, st);
+    case kVelocity:
+      if (!a.pos0 || !a.rho || !a.mass || !a.dt || !a.max_speed || !a.rho0 || !a.vel_out ||
+          !a.rho_out)
+        return cudaErrorInvalidValue;
+      return dispatch_pbf<T, kVelocity>(a, dim, st);
+    case kMix:
+      if (!a.vel || !a.dv || !a.coef || !a.max_speed || !a.vel_out ||
+          (a.rho != nullptr) != (a.rho_out != nullptr) || (a.rho_out && !a.floor))
+        return cudaErrorInvalidValue;
+      return dispatch_pbf<T, kMix>(a, dim, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // mode 0: the WCSPH update (pos, vel out); 1: PBF's prediction (pos_out is
@@ -473,4 +707,24 @@ extern "C" int sph_integrate_f64(int mode, const void* pos, const void* vel, con
   return launch<double>(mode, pos, vel, acc, xsph, obs, ms, mb, valid, owner, dt, xsph_eps,
                         max_speed, h, stiffness, damping, gravity, bmin, bmax, pos_out, vel_out,
                         travel, travel_out, scratch, S, dim, walls, frozen_from, stream);
+}
+
+// PBF's passes, mode 2 PROJECT, 3 VELOCITY, 4 MIX. in: the 18 inputs of
+// PbfArgs in its order, pos to period, then coef, floor and travel (null
+// where the mode reads none, and rho and floor in MIX without a density
+// out); valid, owner and the outputs as there.
+extern "C" int sph_integrate_pbf_f32(int mode, const void* const* in, const void* valid,
+                                     const void* owner, void* pos_out, void* vel_out,
+                                     void* rho_out, void* travel_out, void* scratch, long long S,
+                                     int dim, int walls, long long frozen_from, void* stream) {
+  return launch_pbf<float>(mode, in, valid, owner, pos_out, vel_out, rho_out, travel_out,
+                           scratch, S, dim, walls, frozen_from, stream);
+}
+
+extern "C" int sph_integrate_pbf_f64(int mode, const void* const* in, const void* valid,
+                                     const void* owner, void* pos_out, void* vel_out,
+                                     void* rho_out, void* travel_out, void* scratch, long long S,
+                                     int dim, int walls, long long frozen_from, void* stream) {
+  return launch_pbf<double>(mode, in, valid, owner, pos_out, vel_out, rho_out, travel_out,
+                            scratch, S, dim, walls, frozen_from, stream);
 }

@@ -8,9 +8,17 @@ constants, arithmetic order and update order. A step:
   repeat ``iters`` times (Jacobi projections):
       rho_i and the gradient sums        ->  lambda_i = -C_i / (denom + eps)
       dx_i = (1/rho0) sum_j m_j (lambda_i + lambda_j + s_corr) gradW_ij
-      under-relaxed by ``sor``, capped at min(proj_cap_h h, skin/2)
-  v = (x* - x)/dt, speed-clamped; a final fold for density and XSPH
-  (optionally vorticity confinement first).
+      under-relaxed by ``sor``, capped at min(proj_cap_h h, skin/2), applied
+      inside the box (``integrate.project``)
+  v = (x* - x)/dt, speed-clamped, and the XSPH weights m/rho
+  (``integrate.pbf_velocity``); a final fold for density and XSPH
+  (optionally vorticity confinement first), each sum added to v by
+  ``integrate.pbf_mix``.
+
+The per-slot passes around the folds (``predict``, ``project``,
+``pbf_velocity``, ``pbf_mix``) are modes of ``csrc/integrate.cu``'s
+``integrate_slots`` on the card, one launch each, and their plain torch
+versions on the CPU.
 
 ``maybe_rebin`` runs before every fold (``iters + 2`` host decisions a
 step), since particles move between folds. The five pair folds are
@@ -44,7 +52,6 @@ from sph_pie_torch.neighbors import pbf_folds as pf
 from sph_pie_torch.neighbors.density import density
 from sph_pie_torch.neighbors.pbf_folds import inv_r_of as _inv_r
 from sph_pie_torch.solvers import integrate
-from sph_pie_torch.solvers.wcsph import clamp_speed
 from sph_pie_torch.solvers.wcsph_binned import maybe_rebin, wall_axes
 from sph_pie_torch.utils.profiling import annotate
 from sph_pie_torch.utils.struct import replace
@@ -194,20 +201,9 @@ def step(
             bb = maybe_rebin(grid, bb, **kw)
             return nb.wrap_ghosts(grid, bb) if periodic else bb
 
-    def clip_box(x):
-        """Project into the AABB on wall axes only (periodic axes drift
-        freely; the bin-time fold wraps them)."""
-        c = torch.clamp(x, params.bound_min, params.bound_max)
-        return torch.where(wall_mask, c, x) if periodic else c
-
-    def fmask(bb):
-        return (bb.valid & ~nb.frozen_mask(grid, bb))[:, None]
-
     b = rebin_check(b, carry_density=ride)
 
     with annotate("sph.predict"):
-        if periodic:
-            wall_mask = nb.axis_vector(walls, torch.bool, b.pos.device)[None, :]
         x_star, travel = integrate.predict(params, grid, b, walls, obstacles)
 
         # "gather": vel is left as it is (light mid-step rebins drop it);
@@ -219,64 +215,37 @@ def step(
     for _ in range(pbf.iters):
         b = rebin_check(b, light=not ride, carry_density=ride)
         with annotate("sph.project"):
-            v = fmask(b)
             fields = {"pos": b.pos, "mass": b.mass}
             lam, _, words = fold(pf.lambda_fold, params, pbf, grid, **fields)
-            dx = pbf.sor * fold(pf.dx_fold, params, pbf, grid, **fields, lam=lam, words=words)
+            dx = fold(pf.dx_fold, params, pbf, grid, **fields, lam=lam, words=words)
             del words  # [S, M] int32 on the card: gone before the next lambda makes its own
-            n = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True), min=1e-30))
-            dx = torch.where(v, dx * torch.clamp(proj_cap / n, max=1.0), 0.0)
-            x = clip_box(b.pos + dx)
-            b = replace(b, pos=torch.where(v, x, b.pos), travel=b.travel + integrate.max_norm(dx))
+            pos, travel = integrate.project(params, grid, b, walls, dx, pbf.sor, proj_cap)
+            b = replace(b, pos=pos, travel=travel)
 
     b = rebin_check(b, light=not ride, carry_density=ride)
     with annotate("sph.epilogue"):
-        valid = fmask(b)
         x_star = b.pos
         if ride:
             pos0, rho_prev = b.vel, b.density
         else:
             own = torch.clamp(b.owner, 0, pos0c.shape[0] - 1).to(torch.int64)
             pos0, rho_prev = pos0c[own], rho_prev_c[own]
+        m_rho, new_vel = integrate.pbf_velocity(params, grid, b, pos0, rho_prev)
 
-        # Monaghan XSPH weight from the previous step's density (rest density
-        # for rows that have none yet).
-        m_rho = b.mass / torch.where(rho_prev > 0, rho_prev, params.rest_density)
-
-        disp = x_star - pos0
-        if periodic:
-            # Minimum image on periodic axes (period dims * cell_size).
-            order = grid.axis_order or tuple(range(grid.dim))
-            lengths = [
-                grid.dims[order.index(sa)] * grid.cell_size
-                if grid.periodic[order.index(sa)]
-                else 0.0
-                for sa in range(grid.dim)
-            ]
-            L = nb.axis_vector(lengths, disp.dtype, disp.device)[None, :]
-            safe_L = torch.where(L > 0, L, 1.0)
-            disp = torch.where(L > 0, disp - L * torch.round(disp / safe_L), disp)
-        new_vel = torch.where(valid, disp / params.dt, 0.0)
-        new_vel = clamp_speed(params, new_vel)
-
-        floor = 1e-6 * params.rest_density
         if params.use_xsph and not pbf.use_vorticity:
             rho, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
-            rho = torch.maximum(torch.where(b.valid, rho, 0.0), floor)
-            new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
-            new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
+            rho, new_vel = integrate.pbf_mix(params, grid, b, new_vel, dv, params.xsph_eps, rho)
         else:
             rho = density(params, grid, b)  # b.pos is x_star
-            rho = torch.maximum(rho, floor)
+            rho = torch.maximum(rho, 1e-6 * params.rest_density)
             if pbf.use_vorticity:
                 omega = _vorticity_fold(params, grid, x_star, new_vel, b.mass, rho, fold)
                 f_vort = _vorticity_force(params, grid, x_star, b.mass, rho, omega, fold)
-                new_vel = new_vel + (pbf.vort_eps * params.dt) * torch.where(valid, f_vort, 0.0)
-                new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
+                _, new_vel = integrate.pbf_mix(params, grid, b, new_vel, f_vort,
+                                               pbf.vort_eps * params.dt)
             if params.use_xsph:
                 _, dv = _density_xsph_fold(params, grid, x_star, new_vel, b.mass, m_rho, fold)
-                new_vel = new_vel + params.xsph_eps * torch.where(valid, dv, 0.0)
-                new_vel = torch.where(valid, clamp_speed(params, new_vel), 0.0)
+                _, new_vel = integrate.pbf_mix(params, grid, b, new_vel, dv, params.xsph_eps)
 
         return replace(b, vel=new_vel, density=rho, sim_time=b.sim_time + params.dt)
 

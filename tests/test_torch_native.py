@@ -249,6 +249,9 @@ def _route_calls():
         "expand": lambda: expand.expand(*expand_args()),
         "update": lambda: integrate.update(p, g, m, None, m.vel, m.vel),
         "predict": lambda: integrate.predict(p, g, m, None),
+        "project": lambda: integrate.project(p, g, m, None, m.vel, pp.sor, pp.proj_cap_h),
+        "pbf_velocity": lambda: integrate.pbf_velocity(p, g, m, m.vel, m.density),
+        "pbf_mix": lambda: integrate.pbf_mix(p, g, m, m.vel, m.vel, p.xsph_eps, m.density),
         "lambda_fold": lambda: pf.lambda_fold(p, pp, g, m.pos, m.mass),
         "dx_fold": lambda: pf.dx_fold(p, pp, g, m.pos, m.mass, m.mass),
         "density_xsph_fold": lambda: pf.density_xsph_fold(p, g, m.pos, m.vel, m.mass, m.mass),
@@ -263,7 +266,8 @@ def _route_calls():
 
 
 ROUTES = (
-    "density", "forces", "expand", "update", "predict", "lambda_fold", "dx_fold",
+    "density", "forces", "expand", "update", "predict", "project", "pbf_velocity", "pbf_mix",
+    "lambda_fold", "dx_fold",
     "density_xsph_fold", "vorticity_fold", "vorticity_eta_fold", "density_cap32",
     "density_window", "center_slab_dense", "center_slab_compact", "forces_mma",
 )
